@@ -1,0 +1,501 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port end to end on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # the full run (ConfidentialTransfer, B = 32)
+    python3 chip_smoke.py --mini     # the same phases on the MiniCommit fixture
+
+Phases, each printing one JSON line when it ends; any failure raises and the
+run exits non-zero (there is no CPU fallback):
+
+  device   the card, its power limit, the torch/CUDA versions
+  build    compiles csrc/*.cu with nvcc (all sources in parallel) and loads them
+  crs      ConfidentialProver.from_toxic_waste on the card
+  kernels  every kernel wrapper against its plain PyTorch version on the card,
+           on CRS points and random field elements at the main path's shapes
+  prove    one batch of 32 proofs (warm run, then a timed run with the launch
+           counters zeroed just before and read just after)
+  profile  only with --profile: one more batch under torch.profiler (the
+           card's idle share, device time by kernel)
+  verify   the host pairing verifier accepts sampled proofs and rejects a
+           tampered public input
+
+Then one line {"kernels": [...]} (per kernel: launches on the main path, error
+against the plain version, time, the plain version's time, the card's bound),
+the card's name and power limit, and last {"ok": true, "device": {...}}.
+A field or point kernel's "ms" is its time per launch inside a CUDA graph of
+20 launches (the card's own time); "eager_ms" is the time per launch of a
+back-to-back loop through the wrapper, which the host's launch cost bounds.
+
+All comparisons are exact (tolerance 0): field kernels and point add/double on
+identical words, window_totals after normalisation to affine coordinates.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import shutil
+import subprocess
+import sys
+import time
+
+import torch
+
+# The card's published peaks (NVIDIA H100 SXM data sheet).  Integer rate: the
+# data sheet lists 67 TFLOP/s fp32 outside the tensor cores = 33.5e12 fused
+# multiply-adds a second; a Hopper SM has half as many int32 lanes as fp32
+# lanes, so 16.75e12 32-bit integer multiply-adds (or adds) a second.
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 16.75e12
+
+TPU_FF = "zerochain_tpu/ff/pallas_ff.py:157"
+TPU_EC = "zerochain_tpu/ec/pallas_ec.py:241"
+TPU_TOTALS = "zerochain_tpu/msm/pallas_scan.py:170"
+
+
+def emit(phase: str, **kw) -> None:
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean time of fn over reps launches, after one warm call."""
+    fn()
+    return timed(fn, reps)[1]
+
+
+def timed(fn, reps: int = 1):
+    """-> (fn's last result, mean milliseconds) by CUDA events, no warm-up:
+    for the plain versions, which run once and are compared as they are."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Mean device time of one fn() among reps captured in one CUDA graph:
+    the replay carries no per-launch host work, so this is the kernel's time
+    (and its output allocation's, which is none inside a graph)."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    return timed(graph.replay, replays)[1] / reps
+
+
+# Fq multiplies of one group operation as (field multiplies, field squarings):
+# dbl-2009-l, add-2007-bl, madd-2007-bl.  A G1 coordinate multiply or squaring
+# is one Fq multiply; a G2 one is 3 (Karatsuba) or 2 (complex squaring).
+GROUP_OPS = {"double": (2, 5), "add": (11, 5), "madd": (7, 4)}
+FQ_MUL_OPS = 2 * 12 * 12 + 12  # multiply-adds of one 12-word Montgomery multiply
+
+
+def group_op_ops(ncomp: int, op: str) -> int:
+    """32-bit multiply-adds of one group operation over Fq (1) or Fq2 (2)."""
+    n_mul, n_sqr = GROUP_OPS[op]
+    per_mul, per_sqr = (3, 2) if ncomp == 2 else (1, 1)
+    return (n_mul * per_mul + n_sqr * per_sqr) * FQ_MUL_OPS
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    by = n_bytes / HBM_BYTES_PER_S * 1e3
+    op = n_ops / INT_OPS_PER_S * 1e3
+    return (by, "bytes") if by >= op else (op, "operations")
+
+
+def leaves_of(pt):
+    out = []
+    for c in pt:
+        out.extend(c if isinstance(c, tuple) else (c,))
+    return out
+
+
+def max_abs_err(a_leaves, b_leaves) -> float:
+    err = 0
+    for x, y in zip(a_leaves, b_leaves):
+        if x.dtype == torch.bool:
+            err = max(err, int((x != y).any()))
+        else:
+            d = (x.to(torch.int64) & 0xFFFFFFFF) - (y.to(torch.int64) & 0xFFFFFFFF)
+            err = max(err, int(d.abs().max()))
+    return float(err)
+
+
+def random_elements(spec, shape, gen):
+    """Uniform-ish canonical field elements: random words, the top word
+    below p's top word; the first entries are 0, 1 and p - 1."""
+    n = spec.n
+    words = torch.randint(0, 1 << 32, (n, *shape), generator=gen,
+                          device="cuda", dtype=torch.int64)
+    top = spec.p >> (32 * (n - 1))
+    words[n - 1] = torch.randint(0, top, shape, generator=gen, device="cuda",
+                                 dtype=torch.int64)
+    out = ((words << 32) >> 32).to(torch.int32)
+    flat = out.reshape(n, -1)
+    flat[:, :3] = spec.array([0, 1, spec.p - 1], "cuda")
+    return out
+
+
+# ----------------------------------------------------------------------
+def phase_kernels(prover, B, gen):
+    from zerochain_tpu_torch.ec import cuda_ec
+    from zerochain_tpu_torch.ec import weierstrass as W
+    from zerochain_tpu_torch.ec.fields import FqOps, Fq2Ops
+    from zerochain_tpu_torch.ff import cuda_ff
+    from zerochain_tpu_torch.ff import limbs as L
+    from zerochain_tpu_torch.msm import cuda_scan
+    from zerochain_tpu_torch.msm import pippenger as pip
+
+    entries = []
+
+    # ---- K1: field kernels.  Fr/Fs at one NTT butterfly stage of the
+    # batch, (8, B, d/2); Fq at the H query's normalisation, (12, d).
+    d = prover.d
+    shapes = {"Fq": (d,), "Fr": (B, d // 2), "Fs": (B, d // 2)}
+    for spec in (L.FQ, L.FR, L.FS):
+        shape = shapes[spec.name]
+        a = random_elements(spec, shape, gen)
+        b = random_elements(spec, shape, gen)
+        b.reshape(spec.n, -1)[:, :3] = spec.array(
+            [spec.p - 1, spec.p - 1, spec.p - 1], "cuda")
+        count = a[0].numel()
+        n = spec.n
+        for op in ("mont_mul", "mont_sqr", "add", "sub"):
+            kern = getattr(cuda_ff, op)
+            plain = getattr(cuda_ff, op + "_plain")
+            args = (spec, a) if op == "mont_sqr" else (spec, a, b)
+            got = kern(*args)
+            plain(*args)  # warm: the plain version caches its constants
+            want, plain_ms = timed(lambda: plain(*args), 2)
+            err = max_abs_err([got], [want])
+            n_arrays = 2 if op == "mont_sqr" else 3
+            ops = (2 * n * n + n) if op.startswith("mont") else 2 * n
+            bnd, by = bound_ms(n_arrays * n * 4 * count, ops * count)
+            entries.append(dict(
+                name=f"ff.{op}.{spec.name}", route="cuda",
+                source="zerochain_tpu_torch/csrc/ff_kernels.cu",
+                replaces=TPU_FF, counter=("ff", f"{op}.{spec.name}"),
+                off_path=spec.name == "Fs",  # the prover has no Fs op
+                shape=[n, *shape], equal=err == 0, max_abs_err=err,
+                ms=graph_ms(lambda: kern(*args)),
+                eager_ms=time_ms(lambda: kern(*args), 20), plain_ms=plain_ms,
+                bound_ms=bnd, bound_by=by, library_ms=None))
+
+    # ---- K2: point add / double on real CRS points (arbitrary Z), at the
+    # per-chunk accumulate shape (windows x B points), with the cases
+    # P = inf, Q = inf, P = Q, P = -Q planted at the front.
+    n_pts = prover.msm_g1.n_windows * B
+    for F, raw, tag in ((FqOps, prover._raw_queries[0], "g1"),
+                        (Fq2Ops, prover._raw_queries[4], "g2")):
+        avail = pip.first_leaf(raw).shape[-1]
+        idx = torch.arange(n_pts, device="cuda")
+        p = pip.tmap(lambda t: t[:, idx % avail].clone(), raw)
+        q = pip.tmap(lambda t: t[:, (idx * 7 + 3) % avail].clone(), raw)
+        ident = W.identity(F, (1,), "cuda")
+        negq = W.neg(F, q)
+        for k, src in ((0, ident), (3, ident)):      # P = inf at 0, Q = inf at 3
+            tgt = p if k == 0 else q
+            for t, s in zip(leaves_of(tgt), leaves_of(src)):
+                t[:, k] = s[:, 0]
+        for t, s in zip(leaves_of(p), leaves_of(q)):  # P = Q at 1
+            t[:, 1] = s[:, 1]
+        for t, s in zip(leaves_of(p), leaves_of(negq)):  # P = -Q at 2
+            t[:, 2] = s[:, 2]
+        for t in leaves_of(p)[-F.ncomp:] + leaves_of(q)[-F.ncomp:]:
+            t[:, 4] = 0                                # both inf at 4
+        for op, n_in in (("add", 2), ("double", 1)):
+            kern = getattr(cuda_ec, op)
+            plain = getattr(cuda_ec, op + "_plain")
+            args = (F, p, q) if op == "add" else (F, p)
+            got = kern(*args)
+            want, plain_ms = timed(lambda: plain(*args))
+            err = max_abs_err(leaves_of(got), leaves_of(want))
+            words = 3 * F.ncomp * 12
+            bnd, by = bound_ms((n_in + 1) * words * 4 * n_pts,
+                               group_op_ops(F.ncomp, op) * n_pts)
+            entries.append(dict(
+                name=f"ec.{tag}_{op}", route="cuda",
+                source="zerochain_tpu_torch/csrc/ec_kernels.cu",
+                replaces=TPU_EC, counter=("ec", f"{tag}_{op}"),
+                shape=[12, n_pts], equal=err == 0, max_abs_err=err,
+                ms=graph_ms(lambda: kern(*args)),
+                eager_ms=time_ms(lambda: kern(*args), 20), plain_ms=plain_ms,
+                bound_ms=bnd, bound_by=by, library_ms=None))
+
+    # ---- K3: window_totals on one CRS chunk, all windows x B programs in
+    # one launch, uniform and zero-heavy digits; P = Q, P = -Q planted at the
+    # start of the first two threads' runs (the chunks carry zero padding).
+    for F, msm, chunk, tag in (
+            (FqOps, prover.msm_g1, prover.h_chunks[0], "g1"),
+            (Fq2Ops, prover.msm_g2, prover.b2_chunks[0], "g2")):
+        N = pip.first_leaf(chunk).shape[-1]
+        run_len = -(-N // cuda_scan.threads_for(N))
+        for dist in ("uniform", "zero_heavy"):
+            scal = random_elements(L.FR, (N, B), gen)
+            if dist == "zero_heavy":  # most witness values are 0 or 1
+                r = torch.rand((N, B), generator=gen, device="cuda")
+                small = (r < 0.45).to(torch.int32)
+                scal = torch.where((r < 0.9)[None], torch.zeros_like(scal), scal)
+                scal[0] = torch.where(r < 0.9, small, scal[0])
+            sd, od = msm.prep(msm.digits(scal))
+            if dist == "uniform":
+                od[..., 1] = od[..., 0]
+                sd[..., 1] = sd[..., 0]
+                od[..., run_len + 1] = od[..., run_len]
+                sd[..., run_len + 1] = -sd[..., run_len]
+            got = cuda_scan.window_totals(F, chunk, sd, od, msm.nb)
+            want, plain_ms = timed(lambda: cuda_scan.window_totals_plain(
+                F, chunk, sd, od, msm.nb))
+            gx, gy, ginf = W.normalize(F, got)
+            wx, wy, winf = W.normalize(F, want)
+            err = max_abs_err(leaves_of((gx, gy)) + [ginf],
+                              leaves_of((wx, wy)) + [winf])
+            mag = sd.abs()
+            nonzero = int((mag != 0).sum())
+            nxt = torch.cat([mag[..., 1:], torch.zeros_like(mag[..., :1])], -1)
+            drops = int((mag > nxt).sum())
+            words = 3 * F.ncomp * 12
+            M = sd.numel() // N
+            n_bytes = words * 4 * N + 2 * 4 * sd.numel() + words * 4 * M
+            bnd, by = bound_ms(
+                n_bytes, nonzero * group_op_ops(F.ncomp, "madd")
+                + drops * group_op_ops(F.ncomp, "add"))
+            entries.append(dict(
+                name=f"msm.window_totals.{tag}.{dist}", route="cuda",
+                source="zerochain_tpu_torch/csrc/totals_kernel.cu",
+                replaces=TPU_TOTALS, counter=("scan", f"{tag}_window_totals"),
+                shape=[list(sd.shape), N], equal=err == 0,
+                max_abs_err=err, nonzero_digits=nonzero,
+                all_infinity=bool(ginf.all()),
+                ms=time_ms(lambda: cuda_scan.window_totals(
+                    F, chunk, sd, od, msm.nb), 3),
+                plain_ms=plain_ms,
+                bound_ms=bnd, bound_by=by, library_ms=None))
+    return entries
+
+
+def phase_profile(prover, assignments, rs, timed_seconds):
+    """One more prove under torch.profiler: the card's busy time, its idle
+    share of the timed (unprofiled) run, and device time by kernel name.
+    The profiled run itself is slowed by the tracing of every launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prover.prove(assignments, rs=rs)
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    rows = [(ev.key, ev.count, ev.self_device_time_total)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+    busy_us = sum(r[2] for r in rows)
+    if busy_us <= 0:
+        raise SystemExit("torch.profiler recorded no device time")
+    rows.sort(key=lambda r: -r[2])
+    emit("profile", profiled_wall_seconds=wall,
+         device_busy_seconds=busy_us / 1e6, timed_seconds=timed_seconds,
+         device_idle_share=1.0 - busy_us / 1e6 / timed_seconds,
+         kernels=[dict(name=k[:80], count=c, total_ms=t / 1e3,
+                       mean_us=t / c) for k, c, t in rows[:24]])
+
+
+def assignments_for(n, mini):
+    """The batch the repo's own benchmark proves (bench.py:_assignments)."""
+    if mini:
+        return [dict(amount=(10 + 0x10001 * i) & 0xFFFFFFFF) for i in range(n)]
+    from zerochain_tpu_torch.mirror import jubjub as jj
+    from zerochain_tpu_torch.mirror.field import S
+    from zerochain_tpu_torch.protocol.elgamal import Ciphertext
+    from zerochain_tpu_torch.protocol.keys import (
+        EncryptionKey, ProofGenerationKey)
+
+    out = []
+    g_epoch = jj.find_group_hash(b"\x02\x00\x00\x00", b"zcgepoch")
+    for i in range(n):
+        pgk = ProofGenerationKey.from_seed(f"bench-sender-{i}".encode())
+        dk = pgk.into_decryption_key()
+        ek_s = EncryptionKey.from_decryption_key(dk)
+        ek_r = EncryptionKey.from_seed(f"bench-recipient-{i}".encode())
+        ct = Ciphertext.encrypt(27, (0xABCDEF + i) % S, ek_s)
+        out.append(dict(
+            amount=10, remaining_balance=16, fee=1, dec_key=dk.fs,
+            randomness=(0x1337C0DE + i) % S, alpha=(41 + i) % S,
+            enc_key_recipient=ek_r.point, enc_balance_left=ct.left,
+            enc_balance_right=ct.right, pgk=pgk.point, g_epoch=g_epoch))
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--mini", action="store_true",
+                    help="drive the MiniCommit fixture instead of the "
+                         "ConfidentialTransfer circuit (a quick check)")
+    ap.add_argument("--profile", action="store_true",
+                    help="after the timed run, prove once more under "
+                         "torch.profiler and print the card's idle share")
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script only runs on the GPU",
+              file=sys.stderr)
+        return 2
+
+    from zerochain_tpu_torch import _build
+    from zerochain_tpu_torch.ec import cuda_ec
+    from zerochain_tpu_torch.ff import cuda_ff
+    from zerochain_tpu_torch.groth16.core import (
+        prepare_verifying_key, verify_proof)
+    from zerochain_tpu_torch.mirror.field import R
+    from zerochain_tpu_torch.msm import cuda_scan
+    from zerochain_tpu_torch.prover import ConfidentialProver, MiniProver
+
+    t_run = time.time()
+    card = card_line()
+    print(card, flush=True)
+    nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout
+    emit("device", kind=torch.cuda.get_device_name(0), card=card,
+         torch=torch.__version__, cuda=torch.version.cuda,
+         nvcc=" ".join(re.findall(r"release [^\n]+", nvcc)),
+         ninja=shutil.which("ninja") is not None)
+
+    t0 = time.time()
+    _build.build_all()
+    for name in _build.SOURCES:
+        _build.lib(name)
+    ptxas = {}
+    for name, log in _build.ptxas_log.items():
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
+        stack = [int(x) for x in re.findall(r"(\d+) bytes stack frame", log)]
+        ptxas[name] = dict(max_registers=max(regs, default=None),
+                           max_spill_store_bytes=max(spills, default=None),
+                           max_stack_frame_bytes=max(stack, default=None))
+    emit("build", seconds=time.time() - t0, ptxas=ptxas)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    B = 2 if args.mini else 32
+
+    t0 = time.time()
+    if args.mini:
+        import os
+        os.environ["ZEROCHAIN_MSM_CHUNK"] = "256"
+        prover = MiniProver.from_toxic_waste(
+            tau=424242, alpha=111, beta=222, gamma=333, delta=444,
+            chunk=256, chunk_g2=256)
+    else:
+        prover = ConfidentialProver.from_toxic_waste(
+            tau=0x1234567890ABCDEF1234, alpha=0x9876543210FEDCBA,
+            beta=0x1111111122222222, gamma=0x3333333344444444,
+            delta=0x5555555566666666)
+    torch.cuda.synchronize()
+    emit("crs", seconds=time.time() - t0, constraints=prover.m,
+         domain=prover.d, inputs=prover.num_inputs, aux=prover.num_aux,
+         chunks=dict(a=prover.msm_chunk_a, b=prover.msm_chunk_b,
+                     l=prover.msm_chunk_l, h=prover.msm_chunk_h))
+
+    t0 = time.time()
+    entries = phase_kernels(prover, B, gen)
+    emit("kernels", seconds=time.time() - t0,
+         all_equal=all(e["equal"] for e in entries),
+         kernels=[{k: e[k] for k in ("name", "shape", "equal", "ms",
+                                     "eager_ms", "plain_ms") if k in e}
+                  for e in entries])
+    bad = [e["name"] for e in entries if not e["equal"]]
+    if bad:
+        raise SystemExit(f"kernels disagree with their plain versions: {bad}")
+
+    # ---- the main path: prove one batch ------------------------------
+    assignments = assignments_for(B, args.mini)
+    rs = [((0xA5A5 + 977 * i) * 0x9E3779B97F4A7C15 % R,
+           (0x5A5A + 613 * i) * 0xC2B2AE3D27D4EB4F % R) for i in range(B)]
+    prover.sync_stages = True
+    t0 = time.time()
+    prover.prove(assignments, rs=rs)
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+
+    counters = {"ff": cuda_ff.launches, "ec": cuda_ec.launches,
+                "scan": cuda_scan.launches}
+    cuda_ff.reset_launches()
+    cuda_ec.reset_launches()
+    cuda_scan.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    proofs = prover.prove(assignments, rs=rs)
+    torch.cuda.synchronize()
+    prove_s = time.time() - t0
+    counts = {k: dict(v) for k, v in counters.items()}
+    emit("prove", batch=B, warm_seconds=warm_s, seconds=prove_s,
+         proofs_per_second=B / prove_s, stages=prover.last_timings,
+         launches=counts, total_launches=sum(
+             n for c in counts.values() for n in c.values()))
+    for e in entries:
+        grp, key = e.pop("counter")
+        e["launches"] = counts[grp][key]
+    idle = [e["name"] for e in entries
+            if not e.get("off_path") and e["launches"] == 0]
+    if idle:
+        raise SystemExit(f"kernels of the main path never launched: {idle}")
+
+    if args.profile:
+        phase_profile(prover, assignments, rs, prove_s)
+
+    # ---- verify on the host ------------------------------------------
+    t0 = time.time()
+    publics = prover.public_inputs(assignments)
+    pvk = prepare_verifying_key(prover.vk)
+    picks = [0, B - 1]
+    for b in picks:
+        if not verify_proof(pvk, proofs[b], publics[b]):
+            raise SystemExit(f"the verifier rejected proof {b}")
+    tampered = list(publics[0])
+    tampered[0] = (tampered[0] + 1) % R
+    if verify_proof(pvk, proofs[0], tampered):
+        raise SystemExit("the verifier accepted a tampered public input")
+    emit("verify", seconds=time.time() - t0, accepted=picks,
+         tampered_rejected=True)
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "shape")
+    # eager_ms: see the module docstring; nonzero_digits: what a
+    # data-dependent bound was computed from
+    extras = ("eager_ms", "nonzero_digits")
+    print(json.dumps({"kernels": [
+        {**{k: e[k] for k in keys}, **{k: e[k] for k in extras if k in e}}
+        for e in entries]}), flush=True)
+    print(card, flush=True)
+    emit("done", seconds=time.time() - t_run)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

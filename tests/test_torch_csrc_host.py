@@ -1,0 +1,158 @@
+"""The port's CUDA device code, compiled as plain C++ and held against the
+plain PyTorch versions.
+
+``zerochain_tpu_torch/csrc/*.cuh`` and the per-thread steps of
+``totals_kernel.cu`` are written so that they also build with a host
+compiler.  This file builds ``tests/torch_csrc_host_check.cpp`` with ``g++``
+and feeds it the same inputs as the plain versions: field ops and point
+add/double/mixed-add word for word, ``window_totals`` (a block of threads
+stepped through in order) after ``normalize``.  All comparisons are exact
+(tolerance 0).  The kernels themselves run only on a card, where
+``chip_smoke.py`` checks them; this covers their arithmetic and control flow
+where there is none."""
+
+import pathlib
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from zerochain_tpu_torch.ec import cuda_ec
+from zerochain_tpu_torch.ec import g1 as tg1
+from zerochain_tpu_torch.ec import g2 as tg2
+from zerochain_tpu_torch.ff import cuda_ff
+from zerochain_tpu_torch.ff import limbs as TL
+from zerochain_tpu_torch.mirror import curves as cv
+from zerochain_tpu_torch.mirror.field import R
+from zerochain_tpu_torch.msm import cuda_scan
+from zerochain_tpu_torch.msm.suffix import SuffixMsm
+
+torch.set_num_threads(2)  # several test workers share the cores
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+CSRC = ROOT / "zerochain_tpu_torch" / "csrc"
+GROUPS = {"g1": (tg1, cv.G1_GEN, cv.g1_mul, cv.g1_neg),
+          "g2": (tg2, cv.G2_GEN, cv.g2_mul, cv.g2_neg)}
+
+
+@pytest.fixture(scope="module")
+def host_bin(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ on this machine: the device code cannot be built for the host")
+    out = tmp_path_factory.mktemp("csrc_host") / "host_check"
+    subprocess.run(
+        [gxx, "-std=c++17", "-O1", "-x", "c++", "-I", str(CSRC), "-o", str(out),
+         str(ROOT / "tests" / "torch_csrc_host_check.cpp")],
+        check=True, capture_output=True, text=True, timeout=600)
+    return str(out)
+
+
+def _run(host_bin, text):
+    out = subprocess.run([host_bin], input=text, capture_output=True,
+                         text=True, timeout=600, check=True)
+    return [line.split() for line in out.stdout.strip().split("\n")]
+
+
+def _hex(t):
+    return " ".join("%08x" % (int(x) & 0xFFFFFFFF) for x in t.reshape(-1).tolist())
+
+
+@pytest.mark.parametrize("name", ["fq", "fr", "fs"])
+def test_field_ops(host_bin, name):
+    spec = {"fq": TL.FQ, "fr": TL.FR, "fs": TL.FS}[name]
+    rng = np.random.RandomState(41)
+    p = spec.p
+    edge = [0, 1, p - 1, p - 2, (1 << 32) - 1]
+    vals_a = edge + [int.from_bytes(rng.bytes(48), "little") % p for _ in range(40)]
+    vals_b = edge[::-1] + [int.from_bytes(rng.bytes(48), "little") % p for _ in range(40)]
+    a = spec.array(vals_a, "cpu")
+    b = spec.array(vals_b, "cpu")
+    text = "\n".join(f"{name} {_hex(a[:, i])} {_hex(b[:, i])}"
+                     for i in range(len(vals_a)))
+    got = _run(host_bin, text)
+    want = []
+    mul, add, sub = (cuda_ff.mont_mul_plain(spec, a, b),
+                     cuda_ff.add_plain(spec, a, b), cuda_ff.sub_plain(spec, a, b))
+    for i in range(len(vals_a)):
+        want += [_hex(mul[:, i]).split(), _hex(add[:, i]).split(),
+                 _hex(sub[:, i]).split()]
+    assert got == want
+
+
+def _points(name, rng, n):
+    tg, gen, mul, neg = GROUPS[name]
+    base = [mul(gen, int(rng.randint(2, 1 << 30))) for _ in range(6)]
+    return tg, neg, [base[int(rng.randint(0, 6))] for _ in range(n)]
+
+
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_point_ops(host_bin, name):
+    tg, neg, pts = _points(name, np.random.RandomState(43), 6)
+    F = tg.F
+    # generic, P = Q, P = -Q, P = inf, Q = inf, both inf; p is 2P (Z != 1)
+    ps = [pts[0], pts[1], pts[2], None, pts[3], None]
+    qs = [pts[4], None, None, pts[0], None, None]
+    p = tg.double(tg.from_affine_host(ps, device="cpu"))
+    two = tg.to_affine_host(p)
+    qs[1], qs[2] = two[1], neg(two[2])
+    q = tg.from_affine_host(qs, device="cpu")
+
+    def col(pt, i):
+        return " ".join(_hex(pl[:, i]) for pl in cuda_ec._planes(F, pt))
+
+    got = _run(host_bin, "\n".join(
+        f"{name} {col(p, i)} {col(q, i)}" for i in range(6)))
+    add = cuda_ec.add_plain(F, p, q)
+    dbl = cuda_ec.double_plain(F, p)
+    want = []
+    for i in range(6):
+        want += [col(add, i).split(), col(dbl, i).split(),
+                 col(add, i).split(), col(add, i).split()]
+    assert got == want
+
+
+@pytest.mark.parametrize("dist", ["uniform", "zero_heavy"])
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_window_totals_steps(host_bin, name, dist):
+    N, B, T = 64, 2, 8
+    rng = np.random.RandomState(47)
+    tg, neg, pts = _points(name, rng, N)
+    F = tg.F
+    pts[3] = None
+    pts[10] = pts[11]
+    pts[20] = neg(pts[21])
+    P = tg.from_affine_host(pts, device="cpu")
+    msm = SuffixMsm(F, c=8, n_bits=24, signed=True)
+    if dist == "uniform":
+        scal = [[int(rng.randint(0, 1 << 24)) for _ in range(N)] for _ in range(B)]
+    else:
+        scal = [[int(rng.choice([0, 0, 0, 1, 1, int(rng.randint(0, 1 << 24))]))
+                 for _ in range(N)] for _ in range(B)]
+    scal[0][10] = scal[0][11] = 5
+    scal[0][20] = scal[0][21] = 7
+    words = torch.stack([TL.FR.array([s % R for s in row], "cpu") for row in scal], dim=-1)
+    sd, od = msm.prep(msm.digits(words))
+    # the cases at the head of a thread's run: P = Q, then P = -Q
+    od[..., 1] = od[..., 0]
+    sd[..., 1] = sd[..., 0]
+    od[..., N // T + 1] = od[..., N // T]
+    sd[..., N // T + 1] = -sd[..., N // T]
+    want = cuda_scan.window_totals_plain(F, P, sd, od, msm.nb)
+
+    M = sd.numel() // N
+    planes = cuda_ec._planes(F, P)
+    text = f"k3 {int(name == 'g2')} {N} {M} {T}\n"
+    text += "\n".join(_hex(pl) for pl in planes) + "\n"
+    text += " ".join(map(str, sd.reshape(-1).tolist())) + "\n"
+    text += " ".join(map(str, od.reshape(-1).tolist())) + "\n"
+    lines = _run(host_bin, text)
+    outs = []
+    for line in lines:
+        w = torch.tensor([int(x, 16) for x in line], dtype=torch.int64)
+        outs.append(((w << 32) >> 32).to(torch.int32).reshape(12, *sd.shape[:-1]))
+    got = tuple(outs) if name == "g1" else tuple(
+        (outs[2 * k], outs[2 * k + 1]) for k in range(3))
+    assert tg.to_affine_host(got) == tg.to_affine_host(want)

@@ -1,0 +1,95 @@
+"""The port stands alone: it imports with ``jax`` and ``zerochain_tpu``
+made unimportable, its sources name neither, and its entry points refuse to
+run without a CUDA device unless the CPU is asked for."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "zerochain_tpu_torch"
+
+
+def _modules():
+    mods = []
+    for path in sorted(PKG.rglob("*.py")):
+        if "_build" in path.relative_to(PKG).parts[:-1]:
+            continue
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts.pop()
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_every_module_imports_without_jax():
+    mods = _modules()
+    assert len(mods) > 30
+    code = (
+        "import sys, importlib\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'zerochain_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert not any(k.split('.')[0] in ('jax', 'zerochain_tpu') for k in sys.modules)\n"
+        "print('imported', len(sys.modules))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600, cwd="/")
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "imported" in out.stdout
+
+
+def test_sources_do_not_name_jax():
+    pat = re.compile(r"^\s*(import jax|from jax|from zerochain_tpu[ .]|"
+                     r"import zerochain_tpu[ .\n])|zerochain_tpu\.[a-z_]+\.",
+                     re.M)
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 30
+    bad = []
+    for f in files:
+        text = f.read_text()
+        for m in pat.finditer(text):
+            bad.append((str(f.relative_to(ROOT)), m.group(0).strip()))
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("what", ["plan", "matrices", "fixed_base", "prover"])
+def test_default_device_raises_without_cuda(what):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    from zerochain_tpu_torch.ec.fields import FqOps
+    from zerochain_tpu_torch.mirror import curves as cv
+    from zerochain_tpu_torch.msm.pippenger import FixedBaseMsm
+    from zerochain_tpu_torch.ntt import NttPlan
+    from zerochain_tpu_torch.prover import MiniProver
+    from zerochain_tpu_torch.prover.matvec import ConstraintMatrices
+    from zerochain_tpu_torch.r1cs.system import ConstraintSystem
+
+    make = {
+        "plan": lambda: NttPlan(8),
+        "matrices": lambda: ConstraintMatrices(ConstraintSystem(), 1),
+        "fixed_base": lambda: FixedBaseMsm(FqOps, cv.G1_GEN),
+        "prover": lambda: MiniProver.from_toxic_waste(1, 2, 3, 4, 5),
+    }[what]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+
+
+def test_chip_smoke_refuses_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=str(ROOT))
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
