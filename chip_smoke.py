@@ -14,10 +14,19 @@ run exits non-zero (there is no CPU fallback):
            on CRS points and random field elements at the main path's shapes
   prove    one batch of 32 proofs (warm run, then a timed run with the launch
            counters zeroed just before and read just after)
-  profile  only with --profile: one more batch under torch.profiler (the
-           card's idle share, device time by kernel)
-  verify   the host pairing verifier accepts sampled proofs and rejects a
-           tampered public input
+  prove_hs     the same batch through the bucket MSM (msm_impl="hs", whose
+               Hillis-Steele levels are the hs_add_select kernel), on the
+               same CRS; its proofs must equal prove's
+  prove_split  the same through the suffix MSM's split tail
+               (msm_tail="split", the column_scan kernel); the same check
+  backend  groth16.core.generate_parameters and create_proof through
+           TorchBackend on the card: the same verifying key as the CRS phase,
+           and create_proof on assignment 0 equal to prove's proof 0
+  profile  only with --profile, after each of prove, prove_hs and
+           prove_split: one more batch of that path under torch.profiler
+           (the card's idle share, device time by kernel)
+  verify   the host pairing verifier accepts sampled proofs of every path and
+           rejects a tampered public input
 
 Then one line {"kernels": [...]} (per kernel: launches on the main path, error
 against the plain version, time, the plain version's time, the card's bound),
@@ -26,8 +35,11 @@ A field or point kernel's "ms" is its time per launch inside a CUDA graph of
 20 launches (the card's own time); "eager_ms" is the time per launch of a
 back-to-back loop through the wrapper, which the host's launch cost bounds.
 
-All comparisons are exact (tolerance 0): field kernels and point add/double on
-identical words, window_totals after normalisation to affine coordinates.
+All comparisons are exact (tolerance 0): field kernels, point add/double,
+hs_add_select and column_scan on identical words, window_totals after
+normalisation to affine coordinates.  Each kernel's launches are counted in
+the timed run of the path that uses it: prove for K1-K3, prove_hs for
+hs_add_select, prove_split for column_scan.
 """
 
 from __future__ import annotations
@@ -52,6 +64,13 @@ INT_OPS_PER_S = 16.75e12
 TPU_FF = "zerochain_tpu/ff/pallas_ff.py:157"
 TPU_EC = "zerochain_tpu/ec/pallas_ec.py:241"
 TPU_TOTALS = "zerochain_tpu/msm/pallas_scan.py:170"
+TPU_HS = "zerochain_tpu/ec/pallas_ec.py:315"
+TPU_COLUMN_SCAN = "zerochain_tpu/msm/pallas_scan.py:69"
+
+TOXIC = dict(tau=0x1234567890ABCDEF1234, alpha=0x9876543210FEDCBA,
+             beta=0x1111111122222222, gamma=0x3333333344444444,
+             delta=0x5555555566666666)
+MINI_TOXIC = dict(tau=424242, alpha=111, beta=222, gamma=333, delta=444)
 
 
 def emit(phase: str, **kw) -> None:
@@ -292,13 +311,138 @@ def phase_kernels(prover, B, gen):
                     F, chunk, sd, od, msm.nb), 3),
                 plain_ms=plain_ms,
                 bound_ms=bnd, bound_by=by, library_ms=None))
+
+    entries += hs_entries(prover, B, gen)
+    entries += column_scan_entries(prover, B, gen)
     return entries
 
 
-def phase_profile(prover, assignments, rs, timed_seconds):
-    """One more prove under torch.profiler: the card's busy time, its idle
-    share of the timed (unprofiled) run, and device time by kernel name.
-    The profiled run itself is slowed by the tracing of every launch."""
+def _set_at(dst, idx, src):
+    """dst[..., idx] = src[..., idx] on every coordinate tensor."""
+    for t, u in zip(leaves_of(dst), leaves_of(src)):
+        t[idx] = u[idx]
+
+
+def hs_entries(prover, B, gen):
+    """P3 at the 'hs' path's shape: one Hillis-Steele level over a window
+    group x B x one chunk of partial sums (arbitrary Z), with P = Q, P = -Q
+    and identities planted behind the level's distance s."""
+    from zerochain_tpu_torch.ec import cuda_ec
+    from zerochain_tpu_torch.ec import weierstrass as W
+    from zerochain_tpu_torch.ec.fields import FqOps, Fq2Ops
+    from zerochain_tpu_torch.msm import pippenger as pip
+
+    out = []
+    for F, chunk, tag in ((FqOps, prover.h_chunks[0], "g1"),
+                          (Fq2Ops, prover.b2_chunks[0], "g2")):
+        N = pip.first_leaf(chunk).shape[-1]
+        wg = pip.Msm(F).window_group
+        shape = (wg, B, N)
+
+        def pick():
+            i = torch.randint(0, N, shape, generator=gen, device="cuda")
+            return pip.tmap(
+                lambda t: t.index_select(1, i.reshape(-1)).reshape(12, *shape),
+                chunk)
+
+        x = W.add(F, pick(), pick())  # partial sums; zero padding included
+        s = min(64, N // 2)
+        xl = pip.tmap(lambda t: torch.roll(t, s, dims=-1), x)
+        at = (slice(None), 0, 0)
+        _set_at(xl, (*at, s + 1), x)                          # P = Q
+        _set_at(xl, (*at, s + 2), W.neg(F, x))                # P = -Q
+        ident = W.identity(F, shape, "cuda")
+        _set_at(xl, (*at, s + 3), ident)                      # xl = inf
+        _set_at(x, (*at, s + 4), ident)                       # x = inf
+        f = torch.rand(shape, generator=gen, device="cuda") < 0.05
+        f[0, 0, s + 1: s + 5] = False
+        keep = torch.arange(N, device="cuda") < s
+        got = cuda_ec.hs_add_select(F, xl, x, f, keep)
+        # the plain version window by window: its temporaries at the whole
+        # group would take tens of GB for G2
+        want, plain_ms = timed(lambda: pip.tcat([
+            cuda_ec.hs_add_select_plain(
+                F, pip.tmap(lambda t: t[:, w: w + 1], xl),
+                pip.tmap(lambda t: t[:, w: w + 1], x), f[w: w + 1], keep)
+            for w in range(wg)], 1))
+        err = max_abs_err(leaves_of(got), leaves_of(want))
+        # the function adds (and reads xl) only where neither mask is set:
+        # count those from this level's masks; x, out and the masks are
+        # moved for every point
+        pts = f.numel()
+        n_add = int((~(f | keep)).sum())
+        words = 3 * F.ncomp * 12
+        bnd, by = bound_ms((2 * words * 4 + 2) * pts + words * 4 * n_add,
+                           group_op_ops(F.ncomp, "add") * n_add)
+        out.append(dict(
+            name=f"ec.hs_add_select.{tag}", route="cuda",
+            source="zerochain_tpu_torch/csrc/hs_kernel.cu",
+            replaces=TPU_HS, counter=("ec", f"{tag}_hs_add_select"),
+            path="prove_hs", shape=[12, *shape], n_add=n_add,
+            equal=err == 0, max_abs_err=err,
+            ms=time_ms(lambda: cuda_ec.hs_add_select(F, xl, x, f, keep), 3),
+            plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=None))
+    return out
+
+
+def column_scan_entries(prover, B, gen):
+    """P4 at the split path's shape: one chunk of CRS points in the column
+    layout of all windows x B programs (uniform signed digits, so half the
+    Y coordinates negated and padding points in place), with P = Q and
+    P = -Q planted in two lanes of program 0."""
+    from zerochain_tpu_torch.ec import weierstrass as W
+    from zerochain_tpu_torch.ec.fields import FqOps, Fq2Ops
+    from zerochain_tpu_torch.ff import limbs as L
+    from zerochain_tpu_torch.msm import cuda_scan
+    from zerochain_tpu_torch.msm import pippenger as pip
+    from zerochain_tpu_torch.msm.suffix import SuffixMsm
+
+    out = []
+    for F, chunk, tag in ((FqOps, prover.h_chunks[-1], "g1"),
+                          (Fq2Ops, prover.b2_chunks[0], "g2")):
+        N = pip.first_leaf(chunk).shape[-1]
+        split = SuffixMsm(F, c=8, signed=True, tail="split")
+        scal = random_elements(L.FR, (N, B), gen)
+        sd, od = split.prep(split.digits(scal))
+        if split.column_split(N):
+            pts_cm = split.column_layout(chunk, sd, od)
+        else:  # a short chunk (--mini): tile it up to two depths
+            reps = -(-2 * cuda_scan.VL // N)
+            pts_cm = pip.tmap(lambda t: t.repeat(1, reps)[:, :2 * cuda_scan.VL]
+                              .reshape(12, 1, -1).expand(12, 8, -1)
+                              .contiguous(), chunk)
+        VL = cuda_scan.VL
+        flat = pip.tmap(lambda t: t.reshape(12, -1, t.shape[-1]), pts_cm)
+        _set_at(flat, (slice(None), 0, VL + 5), pip.tmap(
+            lambda t: torch.roll(t, VL, dims=-1), flat))       # P = Q
+        negp = W.neg(F, pip.tmap(lambda t: torch.roll(t, VL, dims=-1), flat))
+        _set_at(flat, (slice(None), 0, VL + 6), negp)         # P = -Q
+        got = cuda_scan.column_scan(F, pts_cm)
+        want, plain_ms = timed(lambda: cuda_scan.column_scan_plain(F, pts_cm))
+        err = max_abs_err(leaves_of(got), leaves_of(want))
+        n = pip.first_leaf(pts_cm).shape[-1]
+        M = pip.first_leaf(pts_cm)[0].numel() // n
+        t_depth = n // VL
+        words = 3 * F.ncomp * 12
+        bnd, by = bound_ms(2 * words * 4 * M * n,
+                           group_op_ops(F.ncomp, "madd") * M * VL * (t_depth - 1))
+        out.append(dict(
+            name=f"msm.column_scan.{tag}", route="cuda",
+            source="zerochain_tpu_torch/csrc/column_scan_kernel.cu",
+            replaces=TPU_COLUMN_SCAN, counter=("scan", f"{tag}_column_scan"),
+            path="prove_split", shape=[12, M, t_depth, VL],
+            off_path=not split.column_split(N),  # --mini: chunks under 1024
+            equal=err == 0, max_abs_err=err,
+            ms=time_ms(lambda: cuda_scan.column_scan(F, pts_cm), 3),
+            plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=None))
+    return out
+
+
+def phase_profile(prover, assignments, rs, timed_seconds, path):
+    """One more prove of the path under torch.profiler: the card's busy
+    time, its idle share of the path's timed (unprofiled) run, and device
+    time by kernel name.  The profiled run itself is slowed by the tracing
+    of every launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -315,11 +459,16 @@ def phase_profile(prover, assignments, rs, timed_seconds):
     if busy_us <= 0:
         raise SystemExit("torch.profiler recorded no device time")
     rows.sort(key=lambda r: -r[2])
-    emit("profile", profiled_wall_seconds=wall,
+    emit("profile", path=path, profiled_wall_seconds=wall,
          device_busy_seconds=busy_us / 1e6, timed_seconds=timed_seconds,
          device_idle_share=1.0 - busy_us / 1e6 / timed_seconds,
          kernels=[dict(name=k[:80], count=c, total_ms=t / 1e3,
                        mean_us=t / c) for k, c, t in rows[:24]])
+
+
+def ints_of(proofs):
+    """Proofs as integer tuples (Proof dataclasses compare by class)."""
+    return [(p.a, p.b, p.c) for p in proofs]
 
 
 def assignments_for(n, mini):
@@ -354,8 +503,9 @@ def main() -> int:
                     help="drive the MiniCommit fixture instead of the "
                          "ConfidentialTransfer circuit (a quick check)")
     ap.add_argument("--profile", action="store_true",
-                    help="after the timed run, prove once more under "
-                         "torch.profiler and print the card's idle share")
+                    help="after each path's timed run, prove once more "
+                         "under torch.profiler and print the card's idle "
+                         "share")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -367,10 +517,11 @@ def main() -> int:
     from zerochain_tpu_torch.ec import cuda_ec
     from zerochain_tpu_torch.ff import cuda_ff
     from zerochain_tpu_torch.groth16.core import (
-        prepare_verifying_key, verify_proof)
+        create_proof, generate_parameters, prepare_verifying_key, verify_proof)
     from zerochain_tpu_torch.mirror.field import R
     from zerochain_tpu_torch.msm import cuda_scan
-    from zerochain_tpu_torch.prover import ConfidentialProver, MiniProver
+    from zerochain_tpu_torch.prover import (
+        ConfidentialProver, MiniProver, TorchBackend)
 
     t_run = time.time()
     card = card_line()
@@ -404,14 +555,10 @@ def main() -> int:
     if args.mini:
         import os
         os.environ["ZEROCHAIN_MSM_CHUNK"] = "256"
-        prover = MiniProver.from_toxic_waste(
-            tau=424242, alpha=111, beta=222, gamma=333, delta=444,
-            chunk=256, chunk_g2=256)
+        prover = MiniProver.from_toxic_waste(**MINI_TOXIC, chunk=256,
+                                             chunk_g2=256)
     else:
-        prover = ConfidentialProver.from_toxic_waste(
-            tau=0x1234567890ABCDEF1234, alpha=0x9876543210FEDCBA,
-            beta=0x1111111122222222, gamma=0x3333333344444444,
-            delta=0x5555555566666666)
+        prover = ConfidentialProver.from_toxic_waste(**TOXIC)
     torch.cuda.synchronize()
     emit("crs", seconds=time.time() - t0, constraints=prover.m,
          domain=prover.d, inputs=prover.num_inputs, aux=prover.num_aux,
@@ -433,37 +580,83 @@ def main() -> int:
     assignments = assignments_for(B, args.mini)
     rs = [((0xA5A5 + 977 * i) * 0x9E3779B97F4A7C15 % R,
            (0x5A5A + 613 * i) * 0xC2B2AE3D27D4EB4F % R) for i in range(B)]
-    prover.sync_stages = True
-    t0 = time.time()
-    prover.prove(assignments, rs=rs)
-    torch.cuda.synchronize()
-    warm_s = time.time() - t0
-
     counters = {"ff": cuda_ff.launches, "ec": cuda_ec.launches,
                 "scan": cuda_scan.launches}
+
+    def drive(p, phase):
+        """One warm prove, then a timed one with every launch counter
+        zeroed just before and read just after."""
+        p.sync_stages = True
+        t0 = time.time()
+        p.prove(assignments, rs=rs)
+        torch.cuda.synchronize()
+        warm_s = time.time() - t0
+        cuda_ff.reset_launches()
+        cuda_ec.reset_launches()
+        cuda_scan.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = p.prove(assignments, rs=rs)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        counts = {k: dict(v) for k, v in counters.items()}
+        emit(phase, batch=B, warm_seconds=warm_s, seconds=secs,
+             proofs_per_second=B / secs, stages=p.last_timings,
+             launches=counts, total_launches=sum(
+                 n for c in counts.values() for n in c.values()))
+        return out, secs, counts
+
+    proofs, prove_s, counts = drive(prover, "prove")
+    path_counts = {"prove": counts}
+    if args.profile:
+        phase_profile(prover, assignments, rs, prove_s, "prove")
+
+    # ---- the other MSM paths, on the same CRS -------------------------
+    cls = MiniProver if args.mini else ConfidentialProver
+    path_proofs = {}
+    for phase, opts in (("prove_hs", dict(msm_impl="hs")),
+                        ("prove_split", dict(msm_tail="split"))):
+        other = cls(None, _device_queries=prover._raw_queries, _vk=prover.vk,
+                    **opts)
+        path_proofs[phase], secs, path_counts[phase] = drive(other, phase)
+        if args.profile:
+            phase_profile(other, assignments, rs, secs, phase)
+        del other
+        if ints_of(path_proofs[phase]) != ints_of(proofs):
+            raise SystemExit(f"{phase}: the proofs differ from prove's")
+
+    # ---- groth16.core through the card's backend ----------------------
+    t0 = time.time()
+    backend = TorchBackend()
+    params = generate_parameters(cls.CIRCUIT(),
+                                 **(MINI_TOXIC if args.mini else TOXIC),
+                                 backend=backend)
+    gen_s = time.time() - t0
+    if params.vk != prover.vk:
+        raise SystemExit("backend: generate_parameters gave another verifying key")
     cuda_ff.reset_launches()
     cuda_ec.reset_launches()
     cuda_scan.reset_launches()
-    torch.cuda.synchronize()
     t0 = time.time()
-    proofs = prover.prove(assignments, rs=rs)
+    backend_proof = create_proof(prover.circuit_for(assignments[0]), params,
+                                 *rs[0], backend=backend)
     torch.cuda.synchronize()
-    prove_s = time.time() - t0
+    proof_s = time.time() - t0
     counts = {k: dict(v) for k, v in counters.items()}
-    emit("prove", batch=B, warm_seconds=warm_s, seconds=prove_s,
-         proofs_per_second=B / prove_s, stages=prover.last_timings,
-         launches=counts, total_launches=sum(
-             n for c in counts.values() for n in c.values()))
+    if ints_of([backend_proof]) != ints_of(proofs[:1]):
+        raise SystemExit("backend: create_proof differs from prove's proof 0")
+    del params
+    emit("backend", generate_parameters_seconds=gen_s,
+         create_proof_seconds=proof_s, vk_equal=True, proof_equal=True,
+         launches=counts)
+
     for e in entries:
         grp, key = e.pop("counter")
-        e["launches"] = counts[grp][key]
+        e["launches"] = path_counts[e.get("path", "prove")][grp][key]
     idle = [e["name"] for e in entries
             if not e.get("off_path") and e["launches"] == 0]
     if idle:
         raise SystemExit(f"kernels of the main path never launched: {idle}")
-
-    if args.profile:
-        phase_profile(prover, assignments, rs, prove_s)
 
     # ---- verify on the host ------------------------------------------
     t0 = time.time()
@@ -473,19 +666,27 @@ def main() -> int:
     for b in picks:
         if not verify_proof(pvk, proofs[b], publics[b]):
             raise SystemExit(f"the verifier rejected proof {b}")
+    others = {"prove_hs": (path_proofs["prove_hs"][1], 1),
+              "prove_split": (path_proofs["prove_split"][B - 2], B - 2),
+              "backend": (backend_proof, 0)}
+    for name, (pr, b) in others.items():
+        if not verify_proof(pvk, pr, publics[b]):
+            raise SystemExit(f"the verifier rejected {name}'s proof {b}")
     tampered = list(publics[0])
     tampered[0] = (tampered[0] + 1) % R
     if verify_proof(pvk, proofs[0], tampered):
         raise SystemExit("the verifier accepted a tampered public input")
     emit("verify", seconds=time.time() - t0, accepted=picks,
+         accepted_other_paths={k: b for k, (_, b) in others.items()},
          tampered_rejected=True)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "shape")
-    # eager_ms: see the module docstring; nonzero_digits: what a
-    # data-dependent bound was computed from
-    extras = ("eager_ms", "nonzero_digits")
+    # eager_ms: see the module docstring; nonzero_digits, n_add: what a
+    # data-dependent bound was computed from; path: the run whose launches
+    # are counted
+    extras = ("eager_ms", "nonzero_digits", "n_add", "path")
     print(json.dumps({"kernels": [
         {**{k: e[k] for k in keys}, **{k: e[k] for k in extras if k in e}}
         for e in entries]}), flush=True)

@@ -2,11 +2,12 @@
 plain PyTorch versions.
 
 ``zerochain_tpu_torch/csrc/*.cuh`` and the per-thread steps of
-``totals_kernel.cu`` are written so that they also build with a host
-compiler.  This file builds ``tests/torch_csrc_host_check.cpp`` with ``g++``
+``totals_kernel.cu`` and ``column_scan_kernel.cu`` are written so that they
+also build with a host compiler.  This file builds ``tests/torch_csrc_host_check.cpp`` with ``g++``
 and feeds it the same inputs as the plain versions: field ops and point
 add/double/mixed-add word for word, ``window_totals`` (a block of threads
-stepped through in order) after ``normalize``.  All comparisons are exact
+stepped through in order) after ``normalize``, ``column_scan`` (every lane
+stepped through) word for word.  All comparisons are exact
 (tolerance 0).  The kernels themselves run only on a card, where
 ``chip_smoke.py`` checks them; this covers their arithmetic and control flow
 where there is none."""
@@ -156,3 +157,26 @@ def test_window_totals_steps(host_bin, name, dist):
     got = tuple(outs) if name == "g1" else tuple(
         (outs[2 * k], outs[2 * k + 1]) for k in range(3))
     assert tg.to_affine_host(got) == tg.to_affine_host(want)
+
+
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_column_scan_lanes(host_bin, name):
+    """Every lane of two programs at T = 2, with padding points, P + P and
+    P + (-P) down a lane: the kernel's steps give the plain version's words."""
+    M, T, VL = 2, 2, cuda_scan.VL
+    rng = np.random.RandomState(53)
+    tg, neg, pts = _points(name, rng, M * T * VL)
+    F = tg.F
+    pts[7] = None                       # program 0, lane 7, t = 0: padding
+    pts[VL + 8] = None                  # t = 1 of lane 8
+    pts[VL + 9] = pts[9]                # P + P
+    pts[VL + 10] = neg(pts[10])         # P + (-P)
+    P = tg.from_affine_host(pts, device="cpu")
+    P = tuple(tuple(x.reshape(12, M, T * VL) for x in c) if isinstance(c, tuple)
+              else c.reshape(12, M, T * VL) for c in P)
+    want = cuda_scan.column_scan_plain(F, P)
+    planes = cuda_ec._planes(F, P)
+    text = f"cs {int(name == 'g2')} {M} {T}\n"
+    text += "\n".join(_hex(pl) for pl in planes) + "\n"
+    lines = _run(host_bin, text)
+    assert lines == [_hex(pl).split() for pl in cuda_ec._planes(F, want)]

@@ -63,7 +63,8 @@ def test_sources_do_not_name_jax():
     assert not bad, bad
 
 
-@pytest.mark.parametrize("what", ["plan", "matrices", "fixed_base", "prover"])
+@pytest.mark.parametrize("what", ["plan", "matrices", "fixed_base", "prover",
+                                  "backend", "host_msm"])
 def test_default_device_raises_without_cuda(what):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device exists")
@@ -71,7 +72,8 @@ def test_default_device_raises_without_cuda(what):
     from zerochain_tpu_torch.mirror import curves as cv
     from zerochain_tpu_torch.msm.pippenger import FixedBaseMsm
     from zerochain_tpu_torch.ntt import NttPlan
-    from zerochain_tpu_torch.prover import MiniProver
+    from zerochain_tpu_torch.msm.pippenger import msm_g1
+    from zerochain_tpu_torch.prover import MiniProver, TorchBackend
     from zerochain_tpu_torch.prover.matvec import ConstraintMatrices
     from zerochain_tpu_torch.r1cs.system import ConstraintSystem
 
@@ -80,6 +82,8 @@ def test_default_device_raises_without_cuda(what):
         "matrices": lambda: ConstraintMatrices(ConstraintSystem(), 1),
         "fixed_base": lambda: FixedBaseMsm(FqOps, cv.G1_GEN),
         "prover": lambda: MiniProver.from_toxic_waste(1, 2, 3, 4, 5),
+        "backend": lambda: TorchBackend(),
+        "host_msm": lambda: msm_g1([cv.G1_GEN], [3]),
     }[what]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()

@@ -1,5 +1,6 @@
 // Host build of the port's CUDA device code (zerochain_tpu_torch/csrc): the
-// headers and the per-thread steps of totals_kernel.cu compile as plain C++,
+// headers and the per-thread steps of totals_kernel.cu and
+// column_scan_kernel.cu compile as plain C++,
 // so their arithmetic can be held against the plain PyTorch versions where
 // there is no CUDA toolkit.  Driven by tests/test_torch_csrc_host.py.
 //
@@ -7,12 +8,14 @@
 //   fq|fr|fs  a b            -> mont_mul, add, sub                 (hex words)
 //   g1|g2     p q            -> add, double(p), madd, add in place (hex words)
 //   k3 g2 N M T  planes digits order -> the window totals, one line a plane
+//   cs g2 M T  planes               -> the column scan in place, one line a plane
 // A block of T threads is stepped through in order, a barrier being the
 // end of a loop over the threads.
 #include <cstdio>
 #include <cstring>
 #include <vector>
 
+#include "column_scan_kernel.cu"
 #include "totals_kernel.cu"
 
 template <int N> static void rd(uint32_t* a) { for (int i = 0; i < N; i++) if (scanf("%x", &a[i]) != 1) a[i] = 0; }
@@ -80,6 +83,18 @@ template <class E> static void totals(int N, long long M, int T) {
   for (auto& o : outs) { for (auto x : o) printf("%08x ", x); printf("\n"); }
 }
 
+template <class E> static void column_scan(long long M, int T) {
+  constexpr int NP = 3 * E::W / 12;
+  const long long n = M * T * ZC_CS_LANES;
+  std::vector<std::vector<uint32_t>> planes(NP, std::vector<uint32_t>(12 * n));
+  for (auto& p : planes) for (auto& x : p) if (scanf("%x", &x) != 1) x = 0;
+  uint32_t* ptrs[NP];
+  for (int k = 0; k < NP; k++) ptrs[k] = planes[k].data();
+  for (long long m = 0; m < M; m++)
+    for (int vl = 0; vl < ZC_CS_LANES; vl++) column_scan_lane<E>(ptrs, n, T, m, vl);
+  for (auto& p : planes) { for (auto x : p) printf("%08x ", x); printf("\n"); }
+}
+
 int main() {
   char op[16];
   while (scanf("%15s", op) == 1) {
@@ -92,6 +107,10 @@ int main() {
       int g2, N, T; long long M;
       if (scanf("%d %d %lld %d", &g2, &N, &M, &T) != 4) return 2;
       if (g2) totals<Fq2E>(N, M, T); else totals<FqE>(N, M, T);
+    } else if (!strcmp(op, "cs")) {
+      int g2, T; long long M;
+      if (scanf("%d %lld %d", &g2, &M, &T) != 3) return 2;
+      if (g2) column_scan<Fq2E>(M, T); else column_scan<FqE>(M, T);
     } else return 2;
   }
   return 0;

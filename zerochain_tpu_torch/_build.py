@@ -2,7 +2,7 @@
 
 Each ``*.cu`` file becomes one shared library with a plain C interface,
 compiled by ``nvcc`` for ``sm_90a`` at first use into ``_build/`` beside this
-file.  The libraries of all three kernels can be compiled at once
+file.  The libraries of all the kernels can be compiled at once
 (:func:`build_all` starts one ``nvcc`` per source), which is what a caller
 that needs all of them should do first.  A build or load failure raises:
 nothing here falls back to another implementation.
@@ -22,7 +22,8 @@ _HERE = pathlib.Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 
-SOURCES = ("ff_kernels", "ec_kernels", "totals_kernel")
+SOURCES = ("ff_kernels", "ec_kernels", "totals_kernel", "hs_kernel",
+           "column_scan_kernel")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -11,6 +11,11 @@ Both sides evaluate the same formulas (dbl-2009-l; add-2007-bl with the
 cases P = inf, Q = inf, P = Q, P = -Q) on canonical field elements, so the
 kernel and the plain version return identical words (tolerance 0).
 
+``hs_add_select`` wraps ``csrc/hs_kernel.cu`` (the counterpart of the fused
+Hillis-Steele level ``hs_add_select`` of the same JAX module): one level of
+a segmented prefix scan, ``out = (f | keep) ? x : add(xl, x)``;
+``hs_add_select_plain`` is its plain version.
+
 Points: (X, Y, Z), each coordinate a field element of ``F`` (``FqOps``: one
 ``(12, *batch)`` int32 tensor; ``Fq2Ops``: a pair of them); infinity <=>
 Z == 0.
@@ -24,7 +29,8 @@ import torch
 
 from .. import _build
 
-launches = {"g1_add": 0, "g1_double": 0, "g2_add": 0, "g2_double": 0}
+launches = {"g1_add": 0, "g1_double": 0, "g2_add": 0, "g2_double": 0,
+            "g1_hs_add_select": 0, "g2_hs_add_select": 0}
 
 
 def reset_launches() -> None:
@@ -35,25 +41,33 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------
 # plain PyTorch versions
 # ---------------------------------------------------------------------
+def _batched(F, op, pairs):
+    """[op(a, b) for a, b in pairs] in ONE field call: the operands ride a
+    new batch axis.  Field results are canonical, so the words are those of
+    the separate calls; on small batches this saves most of the per-call
+    cost of the plain field ops."""
+    k = len(pairs)
+    stack = lambda *ts: torch.stack(torch.broadcast_tensors(*ts), dim=1)  # noqa: E731
+    a = F.map(stack, *[x for x, _ in pairs])
+    b = F.map(stack, *[y for _, y in pairs])
+    r = op(a, b)
+    return [F.map(lambda t, i=i: t[:, i], r) for i in range(k)]
+
+
 def double_plain(F, p):
     """dbl-2009-l; infinity propagates (Z3 = 2YZ = 0)."""
     F = F.plain
     X, Y, Z = p
-    a = F.sqr(X)
-    b = F.sqr(Y)
-    c = F.sqr(b)
-    t = F.sqr(F.add(X, b))
+    a, b, yz = _batched(F, F.mul, [(X, X), (Y, Y), (Y, Z)])
+    e, xb, z3 = _batched(F, F.add, [(a, a), (X, b), (yz, yz)])
+    e = F.add(e, a)
+    c, t, f = _batched(F, F.mul, [(b, b), (xb, xb), (e, e)])
     d1 = F.sub(F.sub(t, a), c)
-    d = F.add(d1, d1)
-    e = F.add(F.add(a, a), a)
-    f = F.sqr(e)
-    x3 = F.sub(f, F.add(d, d))
-    c2 = F.add(c, c)
-    c4 = F.add(c2, c2)
+    d, c2 = _batched(F, F.add, [(d1, d1), (c, c)])
+    d2, c4 = _batched(F, F.add, [(d, d), (c2, c2)])
+    x3 = F.sub(f, d2)
     c8 = F.add(c4, c4)
     y3 = F.sub(F.mul(e, F.sub(d, x3)), c8)
-    yz = F.mul(Y, Z)
-    z3 = F.add(yz, yz)
     return (x3, y3, z3)
 
 
@@ -62,23 +76,19 @@ def add_plain(F, p, q):
     F = F.plain
     X1, Y1, Z1 = p
     X2, Y2, Z2 = q
-    z1z1 = F.sqr(Z1)
-    z2z2 = F.sqr(Z2)
-    u1 = F.mul(X1, z2z2)
-    u2 = F.mul(X2, z1z1)
-    s1 = F.mul(F.mul(Y1, Z2), z2z2)
-    s2 = F.mul(F.mul(Y2, Z1), z1z1)
-    h = F.sub(u2, u1)
-    r = F.sub(s2, s1)
-
-    i = F.sqr(F.add(h, h))
-    j = F.mul(h, i)
-    r2 = F.add(r, r)
-    v = F.mul(u1, i)
-    x3 = F.sub(F.sub(F.sqr(r2), j), F.add(v, v))
-    s1j = F.mul(s1, j)
-    y3 = F.sub(F.mul(r2, F.sub(v, x3)), F.add(s1j, s1j))
-    z3 = F.mul(F.sub(F.sqr(F.add(Z1, Z2)), F.add(z1z1, z2z2)), h)
+    zs = F.add(Z1, Z2)
+    z1z1, z2z2, y1z2, y2z1, zz = _batched(
+        F, F.mul, [(Z1, Z1), (Z2, Z2), (Y1, Z2), (Y2, Z1), (zs, zs)])
+    u1, u2, s1, s2 = _batched(
+        F, F.mul, [(X1, z2z2), (X2, z1z1), (y1z2, z2z2), (y2z1, z1z1)])
+    h, r = _batched(F, F.sub, [(u2, u1), (s2, s1)])
+    h2, r2, zsq = _batched(F, F.add, [(h, h), (r, r), (z1z1, z2z2)])
+    i, rr2, zh = _batched(F, F.mul, [(h2, h2), (r2, r2), (F.sub(zz, zsq), h)])
+    j, v = _batched(F, F.mul, [(h, i), (u1, i)])
+    x3 = F.sub(F.sub(rr2, j), F.add(v, v))
+    s1j, t = _batched(F, F.mul, [(s1, j), (r2, F.sub(v, x3))])
+    y3 = F.sub(t, F.add(s1j, s1j))
+    z3 = zh
 
     p_inf = F.is_zero(Z1)
     q_inf = F.is_zero(Z2)
@@ -103,6 +113,13 @@ def add_plain(F, p, q):
     return res
 
 
+def hs_add_select_plain(F, xl, x, f, keep):
+    """One Hillis-Steele level: x where f | keep, else add(xl, x)."""
+    pass_ = torch.broadcast_to(f | keep, F.batch_shape(x[0]))
+    merged = add_plain(F, xl, x)
+    return tuple(F.select(pass_, a, b) for a, b in zip(x, merged))
+
+
 # ---------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------
@@ -112,6 +129,18 @@ def _fn():
     if not getattr(fn, "_typed", False):
         fn.argtypes = [ctypes.c_int, ctypes.c_int,
                        ctypes.POINTER(ctypes.c_void_p), ctypes.c_longlong,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn._typed = True
+    return fn
+
+
+def _hs_fn():
+    lib = _build.lib("hs_kernel")
+    fn = lib.zc_hs_add_select
+    if not getattr(fn, "_typed", False):
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fn._typed = True
@@ -184,3 +213,41 @@ def double(F, p):
     if kind != "cuda":
         raise ValueError(f"unsupported device {F.device(p[0])}")
     return _launch(F, "double", p)
+
+
+def hs_add_select(F, xl, x, f, keep):
+    """One Hillis-Steele level: ``(f | keep) ? x : add(xl, x)``.
+
+    xl, x: point batches of one shape; f, keep: bool tensors broadcastable
+    to their batch shape."""
+    kind = _device_type(F, x)
+    if kind == "cpu":
+        return hs_add_select_plain(F, xl, x, f, keep)
+    if kind != "cuda":
+        raise ValueError(f"unsupported device {F.device(x[0])}")
+    np_ = 3 * F.ncomp
+    planes = _prepare(_planes(F, xl) + _planes(F, x))
+    ref = planes[0]
+    batch = tuple(ref.shape[1:])
+    masks = []
+    for m in (f, keep):
+        if m.dtype != torch.bool:
+            raise TypeError(f"hs_add_select masks are bool, got {m.dtype}")
+        if m.device != ref.device:
+            raise ValueError("masks and points on different devices")
+        masks.append(torch.broadcast_to(m, batch).contiguous().view(torch.uint8))
+    outs = [torch.empty_like(ref) for _ in range(np_)]
+    count = ref.numel() // 12
+    if count:
+        ptrs = (ctypes.c_void_p * (3 * np_))(
+            *[t.data_ptr() for t in planes], *[t.data_ptr() for t in outs])
+        with torch.cuda.device(ref.device):
+            rc = _hs_fn()(int(F.ncomp == 2), ptrs, masks[0].data_ptr(),
+                          masks[1].data_ptr(), count,
+                          torch.cuda.current_stream().cuda_stream)
+        launches[("g1_" if F.ncomp == 1 else "g2_") + "hs_add_select"] += 1
+        if rc != 0:
+            raise RuntimeError(f"hs_add_select/{F.name}: CUDA error {rc}")
+    if F.ncomp == 1:
+        return tuple(outs)
+    return tuple((outs[2 * k], outs[2 * k + 1]) for k in range(3))

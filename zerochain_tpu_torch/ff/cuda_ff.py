@@ -94,13 +94,17 @@ def _ripple(t):
 
     t: (n, *batch) int64 signed word sums.  -> (words in [0, 2^32),
     carry out), the carry negative where the value was negative."""
-    out = []
-    c = torch.zeros_like(t[0])
-    for i in range(t.shape[0]):
-        s = t[i] + c
-        out.append(s & M32)
-        c = s >> 32
-    return torch.stack(out, dim=0), c
+    # parallel passes: every word keeps its low 32 bits and hands the rest
+    # up; a pass moves a carry one word, so chains end within n passes and
+    # random words settle in two or three
+    carry = torch.zeros_like(t[0])
+    while True:
+        hi = t >> 32
+        if not bool(hi.any()):
+            return t, carry
+        t = t & M32
+        t[1:] += hi[:-1]
+        carry = carry + hi[-1]
 
 
 def _col(v, like):

@@ -1,4 +1,4 @@
-"""The suffix-MSM bucket-sum kernel: ``window_totals``.
+"""The suffix-MSM kernels: ``window_totals`` and ``column_scan``.
 
 For every program m (one window of one proof) it returns
 
@@ -19,6 +19,16 @@ tolerance 0 on the affine coordinates and the infinity flag).
 
 The incoming points must be affine-or-infinity (Z in {0, one}): the kernel's
 run scan uses the mixed add.
+
+``column_scan`` wraps ``csrc/column_scan_kernel.cu`` (the counterpart of
+``column_scan`` / ``_column_scan_kernel`` in the same JAX module), the depth
+scan of the split tail of the suffix MSM (``SuffixMsm(tail="split")``).  A
+chunk of N = T * 1024 points is laid out column-major: logical position i
+lives at physical ``(i mod T) * 1024 + i div T`` (``logical_to_phys``,
+``phys_perm``), and the scan runs down the depth axis T of each of the 1024
+lanes with mixed adds, so its input too must have Z in {0, one}.
+``column_scan_plain`` is its plain version; the two run the same formula in
+the same order and return identical words.
 """
 
 from __future__ import annotations
@@ -30,9 +40,11 @@ import torch
 from .. import _build
 from ..ec import cuda_ec
 from ..ec import weierstrass as W
-from .pippenger import first_leaf, tcat, tmap, tmap2
+from . import scans
+from .pippenger import first_leaf, tcat, tmap
 
-launches = {"g1_window_totals": 0, "g2_window_totals": 0}
+launches = {"g1_window_totals": 0, "g2_window_totals": 0,
+            "g1_column_scan": 0, "g2_column_scan": 0}
 
 
 def reset_launches() -> None:
@@ -48,69 +60,7 @@ def _neg_y_where(F, pts, mask):
     return (x, F.select(mask, F.neg(y), y), z)
 
 
-def _hs_prefix_scan(F, pts):
-    """Inclusive prefix scan (group add) along the last axis, Hillis-Steele:
-    log2(n) levels of one batched add."""
-    n = first_leaf(pts).shape[-1]
-    s = 1
-    while s < n:
-        merged = cuda_ec.add_plain(
-            F, tmap(lambda a: a[..., : n - s], pts),
-            tmap(lambda a: a[..., s:], pts))
-        pts = tmap2(lambda a, mg: torch.cat([a[..., :s], mg], dim=-1),
-                    pts, merged)
-        s *= 2
-    return pts
-
-
-def _prefix_scan(F, pts):
-    """Inclusive prefix scan along the last axis (a power of two) in two
-    levels: the axis is cut into T runs that are scanned side by side, one
-    batched add per position; the run totals are scanned with Hillis-Steele;
-    every run then takes the total of the runs before it.  Runs are 16 long
-    (sqrt(n) below n = 256), so a long axis costs few sequential adds: each
-    is hundreds of small tensor operations whatever its width."""
-    n = first_leaf(pts).shape[-1]
-    if n < 16:
-        return _hs_prefix_scan(F, pts)
-    T = max(n // 16, 1 << ((n.bit_length() - 1) // 2))
-    ln = n // T
-    runs = tmap(lambda a: a.reshape(*a.shape[:-1], T, ln), pts)
-    cols = [tmap(lambda a: a[..., 0], runs)]
-    for j in range(1, ln):
-        cols.append(cuda_ec.add_plain(
-            F, cols[-1], tmap(lambda a: a[..., j], runs)))
-    totals = _hs_prefix_scan(F, cols[-1])           # (..., T) inclusive
-    lead = tuple(first_leaf(totals).shape[1:-1])
-    ident = W.identity(F, (*lead, 1), first_leaf(totals).device)
-    offs = tmap2(lambda i, t: torch.cat([i, t[..., :-1]], dim=-1),
-                 ident, totals)                      # exclusive
-    stacked = tuple(_stack_last(F, [c[k] for c in cols]) for k in range(3))
-    offs_b = tmap(lambda a: a[..., None].expand(*a.shape, ln), offs)
-    out = cuda_ec.add_plain(F, offs_b, stacked)
-    return tmap(lambda a: a.reshape(*a.shape[:-2], n), out)
-
-
-def _stack_last(F, coords):
-    """Stack a list of field elements along a new last axis."""
-    return F.map(lambda *ts: torch.stack(ts, dim=-1), *coords)
-
-
-def _tree_sum_last(F, pts, n: int):
-    """Pairwise tree reduction over the last axis (n entries)."""
-    while n > 1:
-        half = n // 2
-        s = cuda_ec.add_plain(F, tmap(lambda x: x[..., :half], pts),
-                              tmap(lambda x: x[..., half:2 * half], pts))
-        if n % 2:
-            s = tmap2(lambda x, y: torch.cat([x, y[..., n - 1:n]], dim=-1),
-                      s, pts)
-        pts = s
-        n = (n + 1) // 2
-    return tmap(lambda x: x[..., 0], pts)
-
-
-_PLAIN_SLAB = 1 << 22  # coordinate elements (points x ncomp) per pass
+_PLAIN_SLAB = 1 << 21  # coordinate elements (points x ncomp) per pass
 
 
 def window_totals_plain(F, points, sorted_digits, order, nb: int):
@@ -133,7 +83,7 @@ def window_totals_plain(F, points, sorted_digits, order, nb: int):
     idx = order.reshape(-1).to(torch.int64)
     pts = tmap(lambda a: a.index_select(1, idx).reshape(12, *lead, N), points)
     pts = _neg_y_where(F, pts, sorted_digits < 0)
-    pre = _prefix_scan(F, pts)
+    pre = scans.prefix_scan(F, pts, add=cuda_ec.add_plain)
 
     # cnt[t] = #{i : |d_i| >= t} by binary search on ascending magnitudes
     asc = sorted_digits.abs().flip(-1).reshape(-1, N).contiguous()
@@ -146,7 +96,7 @@ def window_totals_plain(F, points, sorted_digits, order, nb: int):
         lambda a: torch.gather(a, -1, pick.expand(12, *pick.shape)), pre)
     ident = W.identity(F, tuple(empty.shape), empty.device)
     picked = W.select(F, empty, ident, picked)
-    return _tree_sum_last(F, picked, nb - 1)
+    return scans.tree_sum_last(F, picked, nb - 1, add=cuda_ec.add_plain)
 
 
 # ---------------------------------------------------------------------
@@ -216,6 +166,123 @@ def window_totals(F, points, sorted_digits, order, nb: int):
         if rc != 0:
             raise RuntimeError(f"window_totals/{F.name}: CUDA error {rc}")
     outs = [t.reshape(12, *lead) for t in outs]
+    if F.ncomp == 1:
+        return tuple(outs)
+    return tuple((outs[2 * k], outs[2 * k + 1]) for k in range(3))
+
+
+# ---------------------------------------------------------------------
+# column_scan: the depth scan of the split tail
+# ---------------------------------------------------------------------
+VL = 1024  # lanes of the column-major layout
+
+
+def logical_to_phys(i, n_elems: int):
+    """Logical sorted position -> physical index j = (i mod T) * 1024 +
+    i div T, with T = n_elems / 1024."""
+    t_depth = n_elems // VL
+    return (i % t_depth) * VL + i // t_depth
+
+
+def phys_perm(n_elems: int, device=None) -> torch.Tensor:
+    """p with p[j] = the logical position stored at physical j (int64)."""
+    t_depth = n_elems // VL
+    j = torch.arange(n_elems, dtype=torch.int64, device=device)
+    return (j % VL) * t_depth + j // VL
+
+
+def madd_plain(F, p, q):
+    """p + q with q's Z in {0, one}: the mixed add of ``jac_madd``
+    (csrc/jacobian.cuh), its cases taken in the same order, so the words
+    agree with the kernel's."""
+    F = F.plain
+    X1, Y1, Z1 = p
+    X2, Y2, Z2 = q
+    z1z1 = F.sqr(Z1)
+    u2 = F.mul(X2, z1z1)
+    s2 = F.mul(F.mul(Y2, Z1), z1z1)
+    h = F.sub(u2, X1)
+    rr = F.sub(s2, Y1)
+    z3 = F.mul(Z1, h)
+    z3 = F.add(z3, z3)
+    i = F.sqr(F.add(h, h))
+    j = F.mul(h, i)
+    r2 = F.add(rr, rr)
+    v = F.mul(X1, i)
+    x3 = F.sub(F.sub(F.sqr(r2), j), F.add(v, v))
+    y1j = F.mul(Y1, j)
+    y3 = F.sub(F.mul(r2, F.sub(v, x3)), F.add(y1j, y1j))
+
+    h0 = F.is_zero(h)
+    r0 = F.is_zero(rr)
+    res = (x3, y3, z3)
+    same = h0 & r0
+    if bool(same.any()):
+        res = W.select(F, same, cuda_ec.double_plain(F, p), res)
+    batch = F.batch_shape(X1)
+    res = W.select(F, h0 & ~r0, W.identity(F, batch, F.device(X1)), res)
+    res = W.select(F, F.is_zero(Z2), p, res)
+    return W.select(F, F.is_zero(Z1), q, res)
+
+
+def column_scan_plain(F, pts_cm):
+    """See ``column_scan``: T - 1 batched mixed adds down the depth axis."""
+    n = first_leaf(pts_cm).shape[-1]
+    t_depth = n // VL
+    cols = tmap(lambda a: a.reshape(*a.shape[:-1], t_depth, VL), pts_cm)
+    run = tmap(lambda a: a[..., 0, :], cols)
+    out = [run]
+    for t in range(1, t_depth):
+        run = madd_plain(F, run, tmap(lambda a: a[..., t, :], cols))
+        out.append(run)
+    stacked = tcat([tmap(lambda a: a.unsqueeze(-2), r) for r in out], -2)
+    return tmap(lambda a: a.reshape(*a.shape[:-2], n), stacked)
+
+
+def _cs_fn():
+    lib = _build.lib("column_scan_kernel")
+    fn = lib.zc_column_scan
+    if not getattr(fn, "_typed", False):
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+                       ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn._typed = True
+    return fn
+
+
+def column_scan(F, pts_cm):
+    """Inclusive group prefix down the depth axis, per lane.
+
+    pts_cm: leaves (12, *lead, N) with N = T * 1024 in the column-major
+    layout, every point with Z in {0, one}.  Returns new leaves of the same
+    layout: physical (t, vl) holds the sum of logical vl*T .. vl*T + t."""
+    planes = [t for coord in pts_cm for t in F.leaves(coord)]
+    ref = planes[0]
+    n = ref.shape[-1]
+    if n == 0 or n % VL:
+        raise ValueError(f"column_scan needs N a multiple of {VL}, got {n}")
+    for t in planes:
+        if t.dtype != torch.int32 or t.shape != ref.shape or t.shape[0] != 12:
+            raise ValueError(
+                f"point planes must be int32 (12, *lead, {n}) of one shape, "
+                f"got {t.dtype} {tuple(t.shape)}")
+        if t.device != ref.device:
+            raise ValueError("point planes on different devices")
+    if ref.device.type == "cpu":
+        return column_scan_plain(F, pts_cm)
+    if ref.device.type != "cuda":
+        raise ValueError(f"unsupported device {ref.device}")
+
+    outs = [t.clone(memory_format=torch.contiguous_format) for t in planes]
+    M = ref[0].numel() // n
+    if M:
+        ptrs = (ctypes.c_void_p * len(outs))(*[t.data_ptr() for t in outs])
+        with torch.cuda.device(ref.device):
+            rc = _cs_fn()(int(F.ncomp == 2), ptrs, n // VL, M,
+                          torch.cuda.current_stream().cuda_stream)
+        launches[("g1" if F.ncomp == 1 else "g2") + "_column_scan"] += 1
+        if rc != 0:
+            raise RuntimeError(f"column_scan/{F.name}: CUDA error {rc}")
     if F.ncomp == 1:
         return tuple(outs)
     return tuple((outs[2 * k], outs[2 * k + 1]) for k in range(3))

@@ -1,4 +1,13 @@
-"""Shared MSM helpers and the fixed-base MSM.
+"""Shared MSM helpers, the bucket MSM and the fixed-base MSM.
+
+`Msm` is the bucket MSM of ``zerochain_tpu/msm/pippenger.py``: per window
+it sorts the points by digit, reduces runs of equal digits with a segmented
+Hillis-Steele prefix scan (one level a launch of the ``hs_add_select``
+kernel, ec/cuda_ec.py), scatters the run sums into 2^c buckets and folds
+them with the running-sum trick; the windows combine MSB first.  ``msm_g1``
+and ``msm_g2`` are its host-level entry points (mirror affine points and int
+scalars in, an affine point out), which the Groth16 backend
+(prover/backend.py) hands to ``groth16.core``.
 
 `FixedBaseMsm` covers the CRS-generation pattern (one base, many scalars)
 with a precomputed (n_windows, 2^c) table + gather + log-depth tree add.
@@ -6,10 +15,13 @@ with a precomputed (n_windows, 2^c) table + gather + log-depth tree add.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 from .. import _device
+from ..ec import cuda_ec
 from ..ec import weierstrass as W
 
 WINDOW_C = 8  # default window width in bits
@@ -60,6 +72,16 @@ def scalars_to_bits_np(scalars, n_bits: int = 255) -> np.ndarray:
 def scalars_to_bits(scalars, n_bits: int = 255, device=None) -> torch.Tensor:
     """Host ints -> (n_bits, N) LE bit tensor."""
     return torch.from_numpy(scalars_to_bits_np(list(scalars), n_bits)).to(device)
+
+
+def limbs_to_bits(words: torch.Tensor, n_bits: int = 255) -> torch.Tensor:
+    """(n_words, ...) canonical int32 word scalars -> (n_bits, ...) LE bit
+    tensor (int32)."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    shifts = shifts.reshape(1, 32, *([1] * (words.dim() - 1)))
+    # an arithmetic shift of the int32 bit pattern leaves bit k at the bottom
+    bits = (words[:, None] >> shifts) & 1
+    return bits.reshape(words.shape[0] * 32, *words.shape[1:])[:n_bits]
 
 
 def digits_from_bits(bits: torch.Tensor, c: int, n_windows: int) -> torch.Tensor:
@@ -143,3 +165,153 @@ class FixedBaseMsm:
             pts = s
             k = (k + 1) // 2
         return tmap(lambda x: x[:, 0], pts)
+
+
+# ---------------------------------------------------------------------
+# the bucket MSM
+# ---------------------------------------------------------------------
+class Msm:
+    """Variable-base bucket MSM over one Weierstrass group (G1 or G2).
+
+    ``window_group`` windows (env ``ZEROCHAIN_MSM_WG``, default 4) go through
+    the scan side by side.  The JAX package's second scan mode, 'assoc', is
+    not ported.  Digits are unsigned c-bit windows: 2^c buckets, bucket 0
+    ignored.  Tensors decide the device."""
+
+    def __init__(self, field, c: int | None = None, n_bits: int = 255,
+                 window_group: int | None = None):
+        self.F = field
+        self.c = WINDOW_C if c is None else c
+        self.n_bits = n_bits
+        self.n_windows = -(-n_bits // self.c)
+        self.window_group = (
+            int(os.environ.get("ZEROCHAIN_MSM_WG", "4"))
+            if window_group is None else window_group)
+
+    def _segmented_hs(self, pts, starts):
+        """Segmented inclusive scan, Hillis-Steele: one hs_add_select
+        launch per level."""
+        n = starts.shape[-1]
+        pos = torch.arange(n, device=starts.device)
+        f = starts
+        for d in range(max(1, (n - 1).bit_length())):
+            s = 1 << d
+            xl = tmap(lambda a: torch.roll(a, s, dims=-1), pts)
+            keep = pos < s  # no left neighbour at distance s
+            pts = cuda_ec.hs_add_select(self.F, xl, pts, f, keep)
+            f = torch.where(keep, f, f | torch.roll(f, s, dims=-1))
+        return pts
+
+    def _window_total(self, points, keys):
+        """points: leaves (12, N); keys: (K, N) digits of K (window, proof)
+        rows -> the K bucket sums sum_i keys[k, i] * P_i, leaves (12, K)."""
+        F = self.F
+        K, n = keys.shape
+        dev = keys.device
+        keys_s, order = torch.sort(keys, dim=-1, stable=True)
+        idx = order.reshape(-1)
+        pts_s = tmap(lambda a: a.index_select(1, idx).reshape(12, K, n), points)
+
+        edge = keys_s[:, 1:] != keys_s[:, :-1]
+        first = torch.ones((K, 1), dtype=torch.bool, device=dev)
+        starts = torch.cat([first, edge], dim=-1)
+        prefix = self._segmented_hs(pts_s, starts)
+
+        # scatter the run sums into 2^c buckets (other positions -> a dummy
+        # slot that is cut off)
+        nb = 1 << self.c
+        ends = torch.cat([edge, first], dim=-1)
+        slot = torch.where(ends, keys_s, nb).to(torch.int64)
+        slot = slot.expand(12, K, n)
+        buckets = tmap2(
+            lambda d, s: d.scatter(-1, slot, s)[..., :nb],
+            W.identity(F, (K, nb + 1), dev), prefix)
+
+        # running-sum fold over buckets nb-1 .. 1
+        running = W.identity(F, (K,), dev)
+        total = W.identity(F, (K,), dev)
+        for i in range(nb - 1, 0, -1):
+            running = W.add(F, running, tmap(lambda a: a[..., i], buckets))
+            total = W.add(F, total, running)
+        return total
+
+    def __call__(self, points_jac, bits):
+        """points_jac: Jacobian leaves (12, N); bits: (n_bits, N, *B) ->
+        Jacobian leaves (12, *B)."""
+        F = self.F
+        digits = digits_from_bits(bits, self.c, self.n_windows)  # (nw, N, *B)
+        n = digits.shape[1]
+        wg = max(1, min(self.window_group, self.n_windows))
+        parts = []
+        for g0 in range(0, self.n_windows, wg):
+            keys = digits[g0: g0 + wg].movedim(1, -1)  # (g, *B, N)
+            lead = tuple(keys.shape[:-1])
+            tot = self._window_total(points_jac, keys.reshape(-1, n))
+            parts.append(tmap(lambda a: a.reshape(12, *lead), tot))
+        totals = tcat(parts, 1)  # (12, nw, *B)
+
+        # combine windows MSB-first: res = 2^c * res + T_w
+        nw = self.n_windows
+        res = tmap(lambda a: a[:, nw - 1], totals)
+        for w in range(nw - 2, -1, -1):
+            for _ in range(self.c):
+                res = W.double(F, res)
+            res = W.add(F, res, tmap(lambda a: a[:, w], totals))
+        return res
+
+
+def naive_msm(field, points_jac, bits):
+    """Per-point scalar mul + tree sum, for small N; points_jac: leaves
+    (12, N) (their Z is not read: affine or padding), bits (n_bits, N)."""
+    from .scans import tree_sum_last
+
+    p = W.scalar_mul_bits(field, (points_jac[0], points_jac[1]), bits)
+    return tree_sum_last(field, p, bits.shape[-1])
+
+
+# ---------------------------------------------------------------------
+# host API
+# ---------------------------------------------------------------------
+def _pad_size(n: int) -> int:
+    """Round up to a power of two, at least 64."""
+    size = 64
+    while size < n:
+        size *= 2
+    return size
+
+
+def _msm_host(grp, field, points, scalars, device=None):
+    """Host-level MSM: mirror affine points + int scalars -> affine point
+    (None for infinity).  Pairs with an infinite point or a zero scalar are
+    dropped; the rest is padded (identity points, zero scalars) to
+    ``_pad_size``: up to 64 points by double-and-add, else by ``Msm``."""
+    dev = _device.resolve(device)
+    pairs = [(p, s) for p, s in zip(points, scalars) if p is not None and s]
+    if not pairs:
+        return None
+    pts, scs = zip(*pairs)
+    n = len(pts)
+    padded = _pad_size(n)
+    pts = list(pts) + [None] * (padded - n)
+    scs = list(scs) + [0] * (padded - n)
+    jac = grp.from_affine_host(pts, device=dev)
+    bits = scalars_to_bits(scs, 255, dev)
+    if padded <= 64:
+        res = naive_msm(field, jac, bits)
+    else:
+        res = Msm(field)(jac, bits)
+    return grp.to_affine_host(tmap(lambda a: a[..., None], res))[0]
+
+
+def msm_g1(points, scalars, device=None):
+    from ..ec import g1 as grp
+    from ..ec.fields import FqOps
+
+    return _msm_host(grp, FqOps, points, scalars, device)
+
+
+def msm_g2(points, scalars, device=None):
+    from ..ec import g2 as grp
+    from ..ec.fields import Fq2Ops
+
+    return _msm_host(grp, Fq2Ops, points, scalars, device)

@@ -2,8 +2,11 @@
 
 prove = witness synthesis -> constraint matvec -> NTT quotient -> five
 suffix-sum MSMs -> on-device final assembly (A/B/C from alpha/beta/delta and
-r, s).  Everything stays on the device; the only host transfer is one batch
-of normalized proof points.  Mirrors bellman's create_random_proof pipeline
+r, s).  ``msm_impl="hs"`` swaps the suffix MSMs for the bucket MSM of
+msm/pippenger.py (Hillis-Steele segmented scans); ``msm_tail="split"`` keeps
+the suffix MSMs with their split tail (msm/suffix.py).  All three give the
+same proofs.  Everything stays on the device; the only host transfer is one
+batch of normalized proof points.  Mirrors bellman's create_random_proof pipeline
 (SURVEY.md §3.2).
 """
 
@@ -47,7 +50,11 @@ class ConfidentialProver:
     (MiniProver below): the pipeline itself is circuit-agnostic.
 
     ``device=None`` means the CUDA device and raises where there is none;
-    only ``device="cpu"`` selects the CPU."""
+    only ``device="cpu"`` selects the CPU.
+
+    ``msm_impl``: "suffix" (default) or "hs", None reads
+    ``ZEROCHAIN_MSM_IMPL``; ``msm_tail``: the suffix MSMs' tail, "totals" or
+    "split", None reads ``ZEROCHAIN_MSM_TOTALS`` (see ``SuffixMsm``)."""
 
     CIRCUIT = ConfidentialTransfer
 
@@ -56,9 +63,25 @@ class ConfidentialProver:
         """-> (witness_inputs_host, witness) for this circuit."""
         return wit.witness_inputs_host, wit.confidential_witness
 
+    @staticmethod
+    def circuit_for(a: dict) -> ConfidentialTransfer:
+        """The circuit object (for groth16.core.create_proof) of one
+        assignment dict of ``prove``."""
+        return ConfidentialTransfer(
+            amount=a["amount"], remaining_balance=a["remaining_balance"],
+            randomness=a["randomness"], alpha=a["alpha"],
+            proof_generation_key=a["pgk"], dec_key_sender=a["dec_key"],
+            enc_key_recipient=a["enc_key_recipient"],
+            encrypted_balance=(a["enc_balance_left"], a["enc_balance_right"]),
+            fee=a["fee"], g_epoch=a["g_epoch"])
+
     def __init__(self, params: Parameters | None, _device_queries=None,
-                 _vk=None, device=None):
+                 _vk=None, device=None, msm_impl: str | None = None,
+                 msm_tail: str | None = None):
         self.device = dev = _device.resolve(device)
+        self.msm_impl = msm_impl or os.environ.get("ZEROCHAIN_MSM_IMPL", "suffix")
+        if self.msm_impl not in ("suffix", "hs"):
+            raise ValueError(f"unknown MSM implementation {self.msm_impl!r}")
         cs = ConstraintSystem(track_names=False)
         self.CIRCUIT().synthesize(cs)
         _pad_input_constraints(cs)
@@ -143,9 +166,16 @@ class ConfidentialProver:
         self.b2_chunks, _ = chunked(b2_raw, self._b_cols_dev, None,
                                     self.msm_chunk_b)
 
-        # signed c = 8 digits: 32 windows, |digit| <= 128
-        self.msm_g1 = smsm.SuffixMsm(FqOps, c=8, signed=True)
-        self.msm_g2 = smsm.SuffixMsm(Fq2Ops, c=8, signed=True)
+        if self.msm_impl == "suffix":
+            # signed c = 8 digits: 32 windows, |digit| <= 128
+            self.msm_g1 = smsm.SuffixMsm(FqOps, c=8, signed=True,
+                                         tail=msm_tail)
+            self.msm_g2 = smsm.SuffixMsm(Fq2Ops, c=8, signed=True,
+                                         tail=msm_tail)
+        else:
+            # unsigned c = 8 digits: 32 windows, 256 buckets
+            self.msm_g1 = pip.Msm(FqOps)
+            self.msm_g2 = pip.Msm(Fq2Ops)
 
     def _prep(self, pts, cols, n, chunk):
         """Gather dense columns, pad to a chunk multiple, and NORMALIZE
@@ -180,13 +210,27 @@ class ConfidentialProver:
 
     @staticmethod
     def _pad_points_axis(d, n):
-        """Pad the point axis (axis 1) of (nw, N, B) digits to n."""
+        """Pad the point axis (axis 1) of (nw, N, B) digits or (n_bits, N,
+        B) bits to n."""
         cur = d.shape[1]
         if cur >= n:
             return d[:, :n]
         z = torch.zeros((d.shape[0], n - cur) + tuple(d.shape[2:]),
                         dtype=d.dtype, device=d.device)
         return torch.cat([d, z], dim=1)
+
+    def _msm_chunked(self, field, pts_chunks, bits):
+        """Bucket-MSM chunk loop: each chunk is a whole MSM over its slice
+        of the bits (n_bits, size, B), window combine included, and the
+        per-proof partial points (leaf batch (B,)) are added."""
+        msm = self.msm_g1 if field is FqOps else self.msm_g2
+        acc, off = None, 0
+        for cpts in pts_chunks:
+            n = pip.first_leaf(cpts).shape[-1]
+            part = msm(cpts, bits[:, off: off + n])
+            acc = part if acc is None else W.add(field, acc, part)
+            off += n
+        return acc
 
     def _msm_chunked_suffix(self, field, pts_chunks, prep_chunks):
         """Suffix-MSM chunk loop over pre-sliced point chunks and digit
@@ -297,6 +341,19 @@ class ConfidentialProver:
         # B2 runs over the same scalars, chunk size and digit encoding as B1
         return (a_p, b1_p, b1_p, l_p, h_p)
 
+    def _bits(self, witness_mont, h_scalars):
+        """The bucket MSMs' scalars: canonical LE bits (255, size, B) per
+        MSM, padded with zeros to the query's chunked size (B1 and B2 share
+        theirs)."""
+        wit_bits = pip.limbs_to_bits(L.from_mont(FR, witness_mont), 255)
+        h_bits = pip.limbs_to_bits(L.from_mont(FR, h_scalars), 255)
+        pad = self._pad_points_axis
+        bb = pad(wit_bits.index_select(1, self._b_cols_dev), self.size_b1)
+        return (pad(wit_bits.index_select(1, self._a_cols_dev), self.size_a),
+                bb, bb,
+                pad(wit_bits[:, self.num_inputs:], self.size_l),
+                pad(h_bits, self.size_h))
+
     def _h_scalars(self, witness_mont):
         """witness (8, n_vars, B) -> quotient coeffs (8, d-1, B) mont."""
         a_v, b_v, c_v = self.matrices.eval(witness_mont)
@@ -394,17 +451,22 @@ class ConfidentialProver:
         # run at their dense (density-gathered) sizes
         witness_mont, h_scalars = self._quotient(aux, public)
         mark("quotient")
-        ap, b1p, b2p, lp, hp = self._digits(witness_mont, h_scalars)
+        if self.msm_impl == "suffix":
+            ap, b1p, b2p, lp, hp = self._digits(witness_mont, h_scalars)
+            run = self._msm_chunked_suffix
+        else:
+            ap, b1p, b2p, lp, hp = self._bits(witness_mont, h_scalars)
+            run = self._msm_chunked
         mark("digits")
-        a_acc = self._msm_chunked_suffix(FqOps, self.a_chunks, ap)
+        a_acc = run(FqOps, self.a_chunks, ap)
         mark("msm_a")
-        b1_acc = self._msm_chunked_suffix(FqOps, self.b1_chunks, b1p)
+        b1_acc = run(FqOps, self.b1_chunks, b1p)
         mark("msm_b1")
-        b2_acc = self._msm_chunked_suffix(Fq2Ops, self.b2_chunks, b2p)
+        b2_acc = run(Fq2Ops, self.b2_chunks, b2p)
         mark("msm_b2")
-        l_acc = self._msm_chunked_suffix(FqOps, self.l_chunks, lp)
+        l_acc = run(FqOps, self.l_chunks, lp)
         mark("msm_l")
-        h_acc = self._msm_chunked_suffix(FqOps, self.h_chunks, hp)
+        h_acc = run(FqOps, self.h_chunks, hp)
         mark("msm_h")
 
         if rs is None:
@@ -454,6 +516,10 @@ class MiniProver(ConfidentialProver):
     @staticmethod
     def _witness_fns():
         return wmini.witness_inputs_host, wmini.mini_witness
+
+    @staticmethod
+    def circuit_for(a: dict) -> MiniCommit:
+        return MiniCommit(amount=a["amount"])
 
 
 def _queries_to(queries, device):
