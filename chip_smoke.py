@@ -12,6 +12,9 @@ run exits non-zero (there is no CPU fallback):
   crs      ConfidentialProver.from_toxic_waste on the card
   kernels  every kernel wrapper against its plain PyTorch version on the card,
            on CRS points and random field elements at the main path's shapes
+           (the chain kernels, ladder and Horner, also in their one-lane form;
+           window_totals also on the digits of the batch the prove phase
+           proves)
   prove    one batch of 32 proofs (warm run, then a timed run with the launch
            counters zeroed just before and read just after)
   prove_hs     the same batch through the bucket MSM (msm_impl="hs", whose
@@ -36,8 +39,8 @@ A field or point kernel's "ms" is its time per launch inside a CUDA graph of
 back-to-back loop through the wrapper, which the host's launch cost bounds.
 
 All comparisons are exact (tolerance 0): field kernels, point add/double,
-hs_add_select and column_scan on identical words, window_totals after
-normalisation to affine coordinates.  Each kernel's launches are counted in
+the ladder, the Horner combine, hs_add_select and column_scan on identical
+words, window_totals after normalisation to affine coordinates.  Each kernel's launches are counted in
 the timed run of the path that uses it: prove for K1-K3, prove_hs for
 hs_add_select, prove_split for column_scan.
 """
@@ -177,9 +180,8 @@ def random_elements(spec, shape, gen):
 
 
 # ----------------------------------------------------------------------
-def phase_kernels(prover, B, gen):
+def phase_kernels(prover, B, gen, assignments):
     from zerochain_tpu_torch.ec import cuda_ec
-    from zerochain_tpu_torch.ec import weierstrass as W
     from zerochain_tpu_torch.ec.fields import FqOps, Fq2Ops
     from zerochain_tpu_torch.ff import cuda_ff
     from zerochain_tpu_torch.ff import limbs as L
@@ -222,54 +224,49 @@ def phase_kernels(prover, B, gen):
                 bound_ms=bnd, bound_by=by, library_ms=None))
 
     # ---- K2: point add / double on real CRS points (arbitrary Z), at the
-    # per-chunk accumulate shape (windows x B points), with the cases
-    # P = inf, Q = inf, P = Q, P = -Q planted at the front.
-    n_pts = prover.msm_g1.n_windows * B
+    # path's shapes: B points (the assembly's adds), 3B (its widest chain),
+    # and windows x B (the per-chunk accumulate), with the cases P = inf,
+    # Q = inf, P = Q, P = -Q planted at the front.  No path doubles through
+    # this kernel any more (the chains run in the ladder and Horner
+    # kernels): the doubling entries are checked, not counted.
     for F, raw, tag in ((FqOps, prover._raw_queries[0], "g1"),
                         (Fq2Ops, prover._raw_queries[4], "g2")):
-        avail = pip.first_leaf(raw).shape[-1]
-        idx = torch.arange(n_pts, device="cuda")
-        p = pip.tmap(lambda t: t[:, idx % avail].clone(), raw)
-        q = pip.tmap(lambda t: t[:, (idx * 7 + 3) % avail].clone(), raw)
-        ident = W.identity(F, (1,), "cuda")
-        negq = W.neg(F, q)
-        for k, src in ((0, ident), (3, ident)):      # P = inf at 0, Q = inf at 3
-            tgt = p if k == 0 else q
-            for t, s in zip(leaves_of(tgt), leaves_of(src)):
-                t[:, k] = s[:, 0]
-        for t, s in zip(leaves_of(p), leaves_of(q)):  # P = Q at 1
-            t[:, 1] = s[:, 1]
-        for t, s in zip(leaves_of(p), leaves_of(negq)):  # P = -Q at 2
-            t[:, 2] = s[:, 2]
-        for t in leaves_of(p)[-F.ncomp:] + leaves_of(q)[-F.ncomp:]:
-            t[:, 4] = 0                                # both inf at 4
-        for op, n_in in (("add", 2), ("double", 1)):
-            kern = getattr(cuda_ec, op)
-            plain = getattr(cuda_ec, op + "_plain")
-            args = (F, p, q) if op == "add" else (F, p)
-            got = kern(*args)
-            want, plain_ms = timed(lambda: plain(*args))
-            err = max_abs_err(leaves_of(got), leaves_of(want))
-            words = 3 * F.ncomp * 12
-            bnd, by = bound_ms((n_in + 1) * words * 4 * n_pts,
-                               group_op_ops(F.ncomp, op) * n_pts)
-            entries.append(dict(
-                name=f"ec.{tag}_{op}", route="cuda",
-                source="zerochain_tpu_torch/csrc/ec_kernels.cu",
-                replaces=TPU_EC, counter=("ec", f"{tag}_{op}"),
-                shape=[12, n_pts], equal=err == 0, max_abs_err=err,
-                ms=graph_ms(lambda: kern(*args)),
-                eager_ms=time_ms(lambda: kern(*args), 20), plain_ms=plain_ms,
-                bound_ms=bnd, bound_by=by, library_ms=None))
+        sizes = (B, 3 * B, prover.msm_g1.n_windows * B) if tag == "g1" else (
+            B, prover.msm_g2.n_windows * B)
+        for n_pts in sizes:
+            p, q = planted_pairs(F, raw, n_pts)
+            for op, n_in in (("add", 2), ("double", 1)):
+                if op == "double" and n_pts > 3 * B:
+                    continue
+                kern = getattr(cuda_ec, op)
+                plain = getattr(cuda_ec, op + "_plain")
+                args = (F, p, q) if op == "add" else (F, p)
+                got = kern(*args)
+                want, plain_ms = timed(lambda: plain(*args))
+                err = max_abs_err(leaves_of(got), leaves_of(want))
+                words = 3 * F.ncomp * 12
+                bnd, by = bound_ms((n_in + 1) * words * 4 * n_pts,
+                                   group_op_ops(F.ncomp, op) * n_pts)
+                entries.append(dict(
+                    name=f"ec.{tag}_{op}.{n_pts}", route="cuda",
+                    source="zerochain_tpu_torch/csrc/ec_kernels.cu",
+                    replaces=TPU_EC, counter=("ec", f"{tag}_{op}"),
+                    off_path=op == "double",
+                    shape=[12, n_pts], equal=err == 0, max_abs_err=err,
+                    ms=graph_ms(lambda: kern(*args)),
+                    eager_ms=time_ms(lambda: kern(*args), 20),
+                    plain_ms=plain_ms,
+                    bound_ms=bnd, bound_by=by, library_ms=None))
+
+    entries += chain_entries(prover, B, gen)
 
     # ---- K3: window_totals on one CRS chunk, all windows x B programs in
     # one launch, uniform and zero-heavy digits; P = Q, P = -Q planted at the
-    # start of the first two threads' runs (the chunks carry zero padding).
+    # head of the first two threads' slices (the chunks carry zero padding).
     for F, msm, chunk, tag in (
             (FqOps, prover.msm_g1, prover.h_chunks[0], "g1"),
             (Fq2Ops, prover.msm_g2, prover.b2_chunks[0], "g2")):
         N = pip.first_leaf(chunk).shape[-1]
-        run_len = -(-N // cuda_scan.threads_for(N))
         for dist in ("uniform", "zero_heavy"):
             scal = random_elements(L.FR, (N, B), gen)
             if dist == "zero_heavy":  # most witness values are 0 or 1
@@ -278,43 +275,191 @@ def phase_kernels(prover, B, gen):
                 scal = torch.where((r < 0.9)[None], torch.zeros_like(scal), scal)
                 scal[0] = torch.where(r < 0.9, small, scal[0])
             sd, od = msm.prep(msm.digits(scal))
-            if dist == "uniform":
+            if dist == "uniform":  # at the head of the first two slices
+                nnz0 = int((sd[0, 0] != 0).sum())
+                run_len = -(-nnz0 // cuda_scan.row_threads(nnz0))
                 od[..., 1] = od[..., 0]
                 sd[..., 1] = sd[..., 0]
                 od[..., run_len + 1] = od[..., run_len]
                 sd[..., run_len + 1] = -sd[..., run_len]
-            got = cuda_scan.window_totals(F, chunk, sd, od, msm.nb)
-            want, plain_ms = timed(lambda: cuda_scan.window_totals_plain(
-                F, chunk, sd, od, msm.nb))
-            gx, gy, ginf = W.normalize(F, got)
-            wx, wy, winf = W.normalize(F, want)
-            err = max_abs_err(leaves_of((gx, gy)) + [ginf],
-                              leaves_of((wx, wy)) + [winf])
-            mag = sd.abs()
-            nonzero = int((mag != 0).sum())
-            nxt = torch.cat([mag[..., 1:], torch.zeros_like(mag[..., :1])], -1)
-            drops = int((mag > nxt).sum())
-            words = 3 * F.ncomp * 12
-            M = sd.numel() // N
-            n_bytes = words * 4 * N + 2 * 4 * sd.numel() + words * 4 * M
-            bnd, by = bound_ms(
-                n_bytes, nonzero * group_op_ops(F.ncomp, "madd")
-                + drops * group_op_ops(F.ncomp, "add"))
-            entries.append(dict(
-                name=f"msm.window_totals.{tag}.{dist}", route="cuda",
-                source="zerochain_tpu_torch/csrc/totals_kernel.cu",
-                replaces=TPU_TOTALS, counter=("scan", f"{tag}_window_totals"),
-                shape=[list(sd.shape), N], equal=err == 0,
-                max_abs_err=err, nonzero_digits=nonzero,
-                all_infinity=bool(ginf.all()),
-                ms=time_ms(lambda: cuda_scan.window_totals(
-                    F, chunk, sd, od, msm.nb), 3),
-                plain_ms=plain_ms,
-                bound_ms=bnd, bound_by=by, library_ms=None))
+            entries.append(totals_entry(F, msm, [chunk], [(sd, od)],
+                                        f"{tag}.{dist}"))
+
+    # ---- K3 on the real digits of one batch: the five MSMs' preps of the
+    # batch the prove phase proves (B1 and B2 share theirs)
+    entries += real_totals_entries(prover, assignments)
 
     entries += hs_entries(prover, B, gen)
     entries += column_scan_entries(prover, B, gen)
     return entries
+
+
+def planted_pairs(F, raw, n_pts):
+    """n_pts pairs of CRS points (p, q) with P = inf at 0, P = Q at 1,
+    P = -Q at 2, Q = inf at 3, both inf at 4."""
+    from zerochain_tpu_torch.ec import weierstrass as W
+    from zerochain_tpu_torch.msm import pippenger as pip
+
+    avail = pip.first_leaf(raw).shape[-1]
+    idx = torch.arange(n_pts, device="cuda")
+    p = pip.tmap(lambda t: t[:, idx % avail].clone(), raw)
+    q = pip.tmap(lambda t: t[:, (idx * 7 + 3) % avail].clone(), raw)
+    ident = W.identity(F, (1,), "cuda")
+    negq = W.neg(F, q)
+    for k, src in ((0, ident), (3, ident)):      # P = inf at 0, Q = inf at 3
+        tgt = p if k == 0 else q
+        for t, s in zip(leaves_of(tgt), leaves_of(src)):
+            t[:, k] = s[:, 0]
+    for t, s in zip(leaves_of(p), leaves_of(q)):  # P = Q at 1
+        t[:, 1] = s[:, 1]
+    for t, s in zip(leaves_of(p), leaves_of(negq)):  # P = -Q at 2
+        t[:, 2] = s[:, 2]
+    for t in leaves_of(p)[-F.ncomp:] + leaves_of(q)[-F.ncomp:]:
+        t[:, 4] = 0                                # both inf at 4
+    return p, q
+
+
+def chain_entries(prover, B, gen):
+    """The chain kernels at the path's shapes, exact against their plain
+    versions, with the one-lane form (lanes=1) checked and timed beside the
+    path's: the ladder at 3B and 2B G1 points and B G2 points, 255 bits, with
+    an identity base, all-zero bits and all-one bits planted; the Horner
+    combine at nw windows x B, c = 8, with 2^c * res equal to the next
+    window's total (the add doubles) and to its negative on two points."""
+    from zerochain_tpu_torch.ec import cuda_ec
+    from zerochain_tpu_torch.ec import weierstrass as W
+    from zerochain_tpu_torch.ec.fields import FqOps, Fq2Ops
+    from zerochain_tpu_torch.msm import pippenger as pip
+
+    out = []
+    words_of = lambda F: 3 * F.ncomp * 12  # noqa: E731
+    step_ops = lambda F: (group_op_ops(F.ncomp, "add")  # noqa: E731
+                          + group_op_ops(F.ncomp, "double"))
+    for F, raw, n_pts, tag in ((FqOps, prover._raw_queries[0], 3 * B, "g1"),
+                               (FqOps, prover._raw_queries[0], 2 * B, "g1"),
+                               (Fq2Ops, prover._raw_queries[4], B, "g2")):
+        avail = pip.first_leaf(raw).shape[-1]
+        idx = (torch.arange(n_pts, device="cuda") * 5 + 1) % avail
+        base = W.add(F, pip.tmap(lambda t: t[:, idx].clone(), raw),
+                     pip.tmap(lambda t: t[:, (idx * 3 + 2) % avail].clone(), raw))
+        for t in leaves_of(base)[-F.ncomp:]:
+            t[:, 0] = 0                                   # identity base
+        bits = torch.randint(0, 2, (255, n_pts), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        bits[:, 1] = 0
+        bits[:, 2] = 1
+        out.append(chain_entry(
+            F, f"ec.ladder.{tag}.{n_pts}", f"{tag}_ladder", [12, n_pts],
+            lambda lanes=None: cuda_ec.ladder(F, base, bits, lanes=lanes),
+            lambda: cuda_ec.ladder_plain(F, base, bits),
+            n_bytes=2 * words_of(F) * 4 * n_pts + 255 * n_pts,
+            n_ops=255 * n_pts * step_ops(F)))
+    for F, raw, msm, tag in ((FqOps, prover._raw_queries[0], prover.msm_g1, "g1"),
+                             (Fq2Ops, prover._raw_queries[4], prover.msm_g2, "g2")):
+        nw, c = msm.n_windows, msm.c
+        avail = pip.first_leaf(raw).shape[-1]
+        idx = torch.arange(nw * B, device="cuda") % avail
+        tot = W.add(F, pip.tmap(lambda t: t[:, idx].reshape(12, nw, B), raw),
+                    pip.tmap(lambda t: t[:, (idx * 7 + 3) % avail]
+                             .reshape(12, nw, B), raw))
+        top = pip.tmap(lambda t: t[:, nw - 1], tot)
+        for _ in range(c):
+            top = cuda_ec.double_plain(F, top)
+        for t, d, nd in zip(leaves_of(tot), leaves_of(top),
+                            leaves_of(W.neg(F, top))):
+            t[:, nw - 2, 0] = d[:, 0]                     # the add doubles
+            t[:, nw - 2, 1] = nd[:, 1]                    # the add gives inf
+        out.append(chain_entry(
+            F, f"ec.horner.{tag}", f"{tag}_horner", [12, nw, B],
+            lambda lanes=None: cuda_ec.horner(F, tot, c, lanes=lanes),
+            lambda: cuda_ec.horner_plain(F, tot, c),
+            n_bytes=(nw + 1) * words_of(F) * 4 * B,
+            n_ops=(nw - 1) * B * (c * group_op_ops(F.ncomp, "double")
+                                  + group_op_ops(F.ncomp, "add"))))
+    return out
+
+
+def chain_entry(F, name, counter, shape, kern, plain, n_bytes, n_ops):
+    want, plain_ms = timed(plain)
+    err = max_abs_err(leaves_of(kern()), leaves_of(want))
+    err_one = max_abs_err(leaves_of(kern(1)), leaves_of(want))
+    bnd, by = bound_ms(n_bytes, n_ops)
+    return dict(
+        name=name, route="cuda", source="zerochain_tpu_torch/csrc/ec_kernels.cu",
+        replaces=TPU_EC, counter=("ec", counter), shape=shape,
+        equal=err == 0 and err_one == 0, max_abs_err=max(err, err_one),
+        ms=time_ms(kern, 3), one_lane_ms=time_ms(lambda: kern(1), 3),
+        plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=None)
+
+
+def totals_entry(F, msm, chunks, preps, tag, proofs=None):
+    """K3 over a list of chunks with their (sorted digits, order): exact
+    after normalisation, on every program, or on those of the first
+    `proofs` proofs (the plain version takes seconds a chunk); ms is the sum
+    of one launch per chunk over all programs, and the bound counts one
+    mixed add per non-zero digit and one add per magnitude drop of these
+    digits."""
+    from zerochain_tpu_torch.ec import weierstrass as W
+    from zerochain_tpu_torch.msm import cuda_scan
+    from zerochain_tpu_torch.msm import pippenger as pip
+
+    err, plain_ms, ms = 0.0, 0.0, 0.0
+    nonzero = drops = n_bytes = 0
+    all_inf = True
+    for chunk, (sd, od) in zip(chunks, preps):
+        N = pip.first_leaf(chunk).shape[-1]
+        got = cuda_scan.window_totals(F, chunk, sd, od, msm.nb)
+        k = sd.shape[1] if proofs is None else proofs  # (nw, B, N) programs
+        want, p_ms = timed(lambda: cuda_scan.window_totals_plain(
+            F, chunk, sd[:, :k], od[:, :k], msm.nb))
+        got = pip.tmap(lambda t: t[:, :, :k], got)
+        gx, gy, ginf = W.normalize(F, got)
+        wx, wy, winf = W.normalize(F, want)
+        err = max(err, max_abs_err(leaves_of((gx, gy)) + [ginf],
+                                   leaves_of((wx, wy)) + [winf]))
+        all_inf = all_inf and bool(ginf.all())
+        plain_ms += p_ms
+        ms += time_ms(lambda: cuda_scan.window_totals(
+            F, chunk, sd, od, msm.nb), 3)
+        mag = sd.abs()
+        nonzero += int((mag != 0).sum())
+        nxt = torch.cat([mag[..., 1:], torch.zeros_like(mag[..., :1])], -1)
+        drops += int((mag > nxt).sum())
+        words = 3 * F.ncomp * 12
+        n_bytes += words * 4 * N + 2 * 4 * sd.numel() + words * 4 * (sd.numel() // N)
+    bnd, by = bound_ms(n_bytes, nonzero * group_op_ops(F.ncomp, "madd")
+                       + drops * group_op_ops(F.ncomp, "add"))
+    rows = torch.cat([(sd != 0).sum(-1).reshape(-1) for sd, _ in preps]).float()
+    qs = torch.tensor([0.0, 0.1, 0.5, 0.9, 1.0], device=rows.device)
+    sd0 = preps[0][0]
+    return dict(
+        name=f"msm.window_totals.{tag}", route="cuda",
+        source="zerochain_tpu_torch/csrc/totals_kernel.cu",
+        replaces=TPU_TOTALS, counter=("scan", f"{tag[:2]}_window_totals"),
+        shape=[len(preps), list(sd0.shape)], equal=err == 0, max_abs_err=err,
+        nonzero_digits=nonzero,
+        row_nonzero_q=[int(x) for x in torch.quantile(rows, qs)],
+        all_infinity=all_inf, ms=ms, plain_ms=plain_ms,
+        bound_ms=bnd, bound_by=by, library_ms=None)
+
+
+def real_totals_entries(prover, assignments):
+    """K3 on the digits one prove batch gives it: witness, quotient and the
+    five MSMs' preps of the batch, each chunk with its CRS points; checked
+    on the programs of the first 8 proofs of every chunk."""
+    from zerochain_tpu_torch.ec.fields import FqOps, Fq2Ops
+
+    inputs_host, witness_fn = prover._witness_fns()
+    aux, public = witness_fn(**inputs_host(assignments, prover.device))
+    wm, hs = prover._quotient(aux, public)
+    a_p, b1_p, b2_p, l_p, h_p = prover._digits(wm, hs)
+    g1_chunks = (list(prover.a_chunks) + list(prover.b1_chunks)
+                 + list(prover.l_chunks) + list(prover.h_chunks))
+    g1_preps = list(a_p) + list(b1_p) + list(l_p) + list(h_p)
+    return [totals_entry(FqOps, prover.msm_g1, g1_chunks, g1_preps, "g1.real",
+                         proofs=8),
+            totals_entry(Fq2Ops, prover.msm_g2, list(prover.b2_chunks),
+                         list(b2_p), "g2.real", proofs=8)]
 
 
 def _set_at(dst, idx, src):
@@ -565,8 +710,9 @@ def main() -> int:
          chunks=dict(a=prover.msm_chunk_a, b=prover.msm_chunk_b,
                      l=prover.msm_chunk_l, h=prover.msm_chunk_h))
 
+    assignments = assignments_for(B, args.mini)
     t0 = time.time()
-    entries = phase_kernels(prover, B, gen)
+    entries = phase_kernels(prover, B, gen, assignments)
     emit("kernels", seconds=time.time() - t0,
          all_equal=all(e["equal"] for e in entries),
          kernels=[{k: e[k] for k in ("name", "shape", "equal", "ms",
@@ -577,7 +723,6 @@ def main() -> int:
         raise SystemExit(f"kernels disagree with their plain versions: {bad}")
 
     # ---- the main path: prove one batch ------------------------------
-    assignments = assignments_for(B, args.mini)
     rs = [((0xA5A5 + 977 * i) * 0x9E3779B97F4A7C15 % R,
            (0x5A5A + 613 * i) * 0xC2B2AE3D27D4EB4F % R) for i in range(B)]
     counters = {"ff": cuda_ff.launches, "ec": cuda_ec.launches,
@@ -603,7 +748,9 @@ def main() -> int:
         emit(phase, batch=B, warm_seconds=warm_s, seconds=secs,
              proofs_per_second=B / secs, stages=p.last_timings,
              launches=counts, total_launches=sum(
-                 n for c in counts.values() for n in c.values()))
+                 n for c in counts.values() for n in c.values()),
+             point_op_launches=sum(  # K2: add, double, ladder, Horner
+                 n for k, n in counts["ec"].items() if "hs_" not in k))
         return out, secs, counts
 
     proofs, prove_s, counts = drive(prover, "prove")
@@ -683,10 +830,12 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "shape")
-    # eager_ms: see the module docstring; nonzero_digits, n_add: what a
+    # eager_ms: see the module docstring; one_lane_ms: a chain kernel with one
+    # lane a point; nonzero_digits, row_nonzero_q, n_add: what a
     # data-dependent bound was computed from; path: the run whose launches
     # are counted
-    extras = ("eager_ms", "nonzero_digits", "n_add", "path")
+    extras = ("eager_ms", "one_lane_ms", "nonzero_digits", "row_nonzero_q",
+              "n_add", "path")
     print(json.dumps({"kernels": [
         {**{k: e[k] for k in keys}, **{k: e[k] for k in extras if k in e}}
         for e in entries]}), flush=True)

@@ -5,9 +5,11 @@ plain PyTorch versions.
 ``totals_kernel.cu`` and ``column_scan_kernel.cu`` are written so that they
 also build with a host compiler.  This file builds ``tests/torch_csrc_host_check.cpp`` with ``g++``
 and feeds it the same inputs as the plain versions: field ops and point
-add/double/mixed-add word for word, ``window_totals`` (a block of threads
-stepped through in order) after ``normalize``, ``column_scan`` (every lane
-stepped through) word for word.  All comparisons are exact
+add/double/mixed-add word for word, ``window_totals`` (each row's threads
+stepped through in order and summed as the kernel sums them) after
+``normalize``, ``column_scan`` (every lane stepped through) word for word,
+and the chain programs of ``group_program.cuh`` (the ladder and the Horner
+combine, one lane a group) word for word.  All comparisons are exact
 (tolerance 0).  The kernels themselves run only on a card, where
 ``chip_smoke.py`` checks them; this covers their arithmetic and control flow
 where there is none."""
@@ -115,10 +117,32 @@ def test_point_ops(host_bin, name):
     assert got == want
 
 
+def _outs(name, lines, lead):
+    outs = []
+    for line in lines:
+        w = torch.tensor([int(x, 16) for x in line], dtype=torch.int64)
+        outs.append(((w << 32) >> 32).to(torch.int32).reshape(12, *lead))
+    if name == "g1":
+        return tuple(outs)
+    return tuple((outs[2 * k], outs[2 * k + 1]) for k in range(3))
+
+
+def _k3(host_bin, name, P, sd, od, T, min_run):
+    """The host build's window totals: T threads a row (0: the kernel's
+    plan), min_run non-zero digits a thread before a row takes more warps."""
+    N = od.shape[-1]
+    M = sd.numel() // N
+    text = f"k3 {int(name == 'g2')} {N} {M} {T} {min_run}\n"
+    text += "\n".join(_hex(pl) for pl in cuda_ec._planes(GROUPS[name][0].F, P)) + "\n"
+    text += " ".join(map(str, sd.reshape(-1).tolist())) + "\n"
+    text += " ".join(map(str, od.reshape(-1).tolist())) + "\n"
+    return _outs(name, _run(host_bin, text), sd.shape[:-1])
+
+
 @pytest.mark.parametrize("dist", ["uniform", "zero_heavy"])
 @pytest.mark.parametrize("name", ["g1", "g2"])
 def test_window_totals_steps(host_bin, name, dist):
-    N, B, T = 64, 2, 8
+    N, B = 64, 2
     rng = np.random.RandomState(47)
     tg, neg, pts = _points(name, rng, N)
     F = tg.F
@@ -136,27 +160,108 @@ def test_window_totals_steps(host_bin, name, dist):
     scal[0][20] = scal[0][21] = 7
     words = torch.stack([TL.FR.array([s % R for s in row], "cpu") for row in scal], dim=-1)
     sd, od = msm.prep(msm.digits(words))
-    # the cases at the head of a thread's run: P = Q, then P = -Q
+    # one non-zero digit a thread at least: the rows take one or two warps;
+    # the cases at the head of a thread's slice: P = Q, then P = -Q
+    nnz = int((sd[0, 0] != 0).sum())
+    run = -(-nnz // cuda_scan.row_threads(nnz, 1))
     od[..., 1] = od[..., 0]
     sd[..., 1] = sd[..., 0]
-    od[..., N // T + 1] = od[..., N // T]
-    sd[..., N // T + 1] = -sd[..., N // T]
+    od[..., run + 1] = od[..., run]
+    sd[..., run + 1] = -sd[..., run]
     want = cuda_scan.window_totals_plain(F, P, sd, od, msm.nb)
-
-    M = sd.numel() // N
-    planes = cuda_ec._planes(F, P)
-    text = f"k3 {int(name == 'g2')} {N} {M} {T}\n"
-    text += "\n".join(_hex(pl) for pl in planes) + "\n"
-    text += " ".join(map(str, sd.reshape(-1).tolist())) + "\n"
-    text += " ".join(map(str, od.reshape(-1).tolist())) + "\n"
-    lines = _run(host_bin, text)
-    outs = []
-    for line in lines:
-        w = torch.tensor([int(x, 16) for x in line], dtype=torch.int64)
-        outs.append(((w << 32) >> 32).to(torch.int32).reshape(12, *sd.shape[:-1]))
-    got = tuple(outs) if name == "g1" else tuple(
-        (outs[2 * k], outs[2 * k + 1]) for k in range(3))
+    got = _k3(host_bin, name, P, sd, od, 0, 1)
     assert tg.to_affine_host(got) == tg.to_affine_host(want)
+
+
+@pytest.mark.parametrize("T", [0, 1, 4, 32, 128])
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_window_totals_thread_counts(host_bin, name, T):
+    """Fixed thread counts and the kernel's own plan (T = 0) on hand-made
+    sorted rows: uniform magnitudes, all zero, fewer non-zero digits than
+    threads, and drops greater than one at the ends of the slices."""
+    N = 64
+    rng = np.random.RandomState(59)
+    tg, neg, pts = _points(name, rng, N)
+    F = tg.F
+    pts[5] = None
+    P = tg.from_affine_host(pts, device="cpu")
+    rows = []
+    mags = sorted(rng.randint(1, 129, N).tolist(), reverse=True)
+    rows.append(mags)                                    # uniform, no zero
+    rows.append([0] * N)                                 # all zero
+    rows.append([3, 2, 2] + [0] * (N - 3))               # fewer than the threads
+    # 16 non-zero digits: at T = 4 slices of 4 ending in 50 | 40 | 9 | 2
+    # whose next heads are 40, 9 and 2 (drops of 10, 31, 7 and the last 2)
+    rows.append([100, 100, 90, 50, 40, 40, 39, 40 - 30, 9, 9, 9, 9, 6, 5, 4, 2]
+                + [0] * (N - 16))
+    rows[3][7] = 40 - 30
+    rows[3] = sorted(rows[3], reverse=True)
+    sd = torch.tensor(rows, dtype=torch.int32)
+    sd = torch.where(torch.from_numpy(rng.rand(*sd.shape) < 0.4), -sd, sd)
+    od = torch.stack([torch.from_numpy(rng.permutation(N)) for _ in rows]).to(torch.int32)
+    od[0, 1] = od[0, 0]                                  # P = Q in the first slice
+    sd[0, 1] = sd[0, 0]
+    want = cuda_scan.window_totals_plain(F, P, sd, od, 129)
+    got = _k3(host_bin, name, P, sd, od, T, 2)
+    assert tg.to_affine_host(got) == tg.to_affine_host(want)
+
+
+def _jac_points(name, rng, n):
+    """n Jacobian points with Z != 1 (doubled affine points)."""
+    tg, neg, pts = _points(name, rng, n)
+    return tg, neg, pts, tg.double(tg.from_affine_host(pts, device="cpu"))
+
+
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_chain_ladder_one_lane(host_bin, name):
+    """The ladder program on one lane a point: a general base, the identity
+    as base, all-zero and all-one bits; the words of ladder_plain."""
+    n_bits, count = 12, 4
+    rng = np.random.RandomState(61)
+    tg, _, _, base = _jac_points(name, rng, count)
+    F = tg.F
+    for c in F.leaves(base[2]):                           # point 1: identity
+        c[:, 1] = 0
+    bits = torch.from_numpy(rng.randint(0, 2, (n_bits, count))).to(torch.int32)
+    bits[:, 2] = 0
+    bits[:, 3] = 1
+    want = cuda_ec.ladder_plain(F, base, bits)
+    text = f"lad {int(name == 'g2')} {n_bits} {count}\n"
+    text += "\n".join(_hex(pl) for pl in cuda_ec._planes(F, base)) + "\n"
+    text += " ".join(map(str, bits.reshape(-1).tolist())) + "\n"
+    got = _run(host_bin, text)
+    assert got == [_hex(pl).split() for pl in cuda_ec._planes(F, want)]
+    assert tg.to_affine_host(want)[1] is None
+
+
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_chain_horner_one_lane(host_bin, name):
+    """The Horner program on one lane a point, nw = 4, c = 3: general
+    windows, a window equal to 2^c times the running result (the add
+    doubles), its negative (the add gives the identity), identities."""
+    nw, c, count = 4, 3, 5
+    rng = np.random.RandomState(67)
+    tg, neg, pts, jac = _jac_points(name, rng, nw * count)
+    F = tg.F
+    tot = tuple(tuple(x.reshape(12, nw, count) for x in co) if isinstance(co, tuple)
+                else co.reshape(12, nw, count) for co in jac)
+    top = tuple(F.map(lambda a: a[:, nw - 1].clone(), co) for co in tot)
+    dbl = top
+    for _ in range(c):
+        dbl = cuda_ec.double_plain(F, dbl)
+    ndbl = (dbl[0], F.plain.neg(dbl[1]), dbl[2])
+    for co, d, nd in zip(tot, dbl, ndbl):                 # window nw - 2
+        for leaf, dl, nl in zip(F.leaves(co), F.leaves(d), F.leaves(nd)):
+            leaf[:, nw - 2, 0] = dl[:, 0]                 # point 0: P = Q
+            leaf[:, nw - 2, 1] = nl[:, 1]                 # point 1: P = -Q
+    for leaf in F.leaves(tot[2]):
+        leaf[:, 0, 2] = 0                                 # point 2: T_0 = inf
+        leaf[:, nw - 1, 3] = 0                            # point 3: T_top = inf
+    want = cuda_ec.horner_plain(F, tot, c)
+    text = f"hor {int(name == 'g2')} {nw} {c} {count}\n"
+    text += "\n".join(_hex(pl) for pl in cuda_ec._planes(F, tot)) + "\n"
+    got = _run(host_bin, text)
+    assert got == [_hex(pl).split() for pl in cuda_ec._planes(F, want)]
 
 
 @pytest.mark.parametrize("name", ["g1", "g2"])

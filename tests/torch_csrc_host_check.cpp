@@ -1,21 +1,28 @@
 // Host build of the port's CUDA device code (zerochain_tpu_torch/csrc): the
-// headers and the per-thread steps of totals_kernel.cu and
-// column_scan_kernel.cu compile as plain C++,
+// headers, the per-thread steps of totals_kernel.cu and
+// column_scan_kernel.cu and the one-lane chain programs of
+// group_program.cuh compile as plain C++,
 // so their arithmetic can be held against the plain PyTorch versions where
 // there is no CUDA toolkit.  Driven by tests/test_torch_csrc_host.py.
 //
 // stdin, one record after the other:
 //   fq|fr|fs  a b            -> mont_mul, add, sub                 (hex words)
 //   g1|g2     p q            -> add, double(p), madd, add in place (hex words)
-//   k3 g2 N M T  planes digits order -> the window totals, one line a plane
+//   k3 g2 N M T R  planes digits order -> the window totals, one line a plane
 //   cs g2 M T  planes               -> the column scan in place, one line a plane
-// A block of T threads is stepped through in order, a barrier being the
-// end of a loop over the threads.
+//   lad g2 n_bits count  planes bits -> the ladder, one line a plane
+//   hor g2 nw c count  planes        -> the Horner combine, one line a plane
+// Threads are stepped through in order, a barrier being the end of a loop
+// over the threads.  k3: T threads a row (T = 0: as many as the kernel gives
+// the row for its non-zero count, R non-zero digits a thread at least),
+// their locals summed as the kernel sums them (a butterfly over each warp's
+// lanes, then the warps in order).  lad, hor: one lane a group.
 #include <cstdio>
 #include <cstring>
 #include <vector>
 
 #include "column_scan_kernel.cu"
+#include "group_program.cuh"
 #include "totals_kernel.cu"
 
 template <int N> static void rd(uint32_t* a) { for (int i = 0; i < N; i++) if (scanf("%x", &a[i]) != 1) a[i] = 0; }
@@ -39,7 +46,24 @@ template <class E> static void point_ops() {
   jac_add<E>(p, p, q); pr<PW>(p);
 }
 
-template <class E> static void totals(int N, long long M, int T) {
+// The sum of T threads' locals in the kernel's order: per warp of (at most)
+// 32 lanes a butterfly of xor shuffles, then the warps' lane 0 in order.
+template <class E> static void reduce_threads(std::vector<uint32_t>& loc, int T, uint32_t* res) {
+  constexpr int PW = 3 * E::W;
+  const int lanes = T < 32 ? T : 32;
+  std::vector<uint32_t> nxt(loc.size());
+  for (int s = 1; s < lanes; s <<= 1) {
+    for (int t = 0; t < T; t++) {
+      const int u = (t & ~31) | ((t & 31) ^ s);
+      jac_add<E>(&nxt[t * PW], &loc[t * PW], &loc[u * PW]);
+    }
+    loc.swap(nxt);
+  }
+  jac_copy<E>(res, &loc[0]);
+  for (int w = 1; w * 32 < T; w++) jac_add<E>(res, res, &loc[w * 32 * PW]);
+}
+
+template <class E> static void totals(int N, long long M, int T, int min_run) {
   constexpr int NP = 3 * E::W / 12, PW = 3 * E::W;
   std::vector<std::vector<uint32_t>> planes(NP, std::vector<uint32_t>(12 * N)),
       outs(NP, std::vector<uint32_t>(12 * M));
@@ -51,36 +75,58 @@ template <class E> static void totals(int N, long long M, int T) {
   for (int k = 0; k < NP; k++) { a.planes[k] = planes[k].data(); a.out[k] = outs[k].data(); }
   a.digits = dg.data(); a.order = od.data(); a.N = N; a.M = M;
   for (long long m = 0; m < M; m++) {
-    std::vector<uint32_t> run(T * PW), local(T * PW), sh(T * PW), other(T * PW);
-    std::vector<int> mrun(T);
-    for (int t = 0; t < T; t++) {
-      totals_scan_run<E>(a, m, t, T, &run[t * PW], &local[t * PW], &mrun[t]);
-      sh_store<E>(sh.data(), T, t, &run[t * PW]);
-    }
-    for (int s = 1; s < T; s <<= 1) {
-      for (int t = s; t < T; t++) sh_load<E>(&other[t * PW], sh.data(), T, t - s);
-      for (int t = s; t < T; t++) {
-        jac_add<E>(&run[t * PW], &other[t * PW], &run[t * PW]);
-        sh_store<E>(sh.data(), T, t, &run[t * PW]);
-      }
-    }
-    for (int t = 0; t < T; t++) {
-      if (t > 0) sh_load<E>(&other[t * PW], sh.data(), T, t - 1);
-      else jac_set_identity<E>(&other[t * PW]);
-    }
-    for (int t = 0; t < T; t++) {
-      totals_contribution<E>(&run[t * PW], &local[t * PW], &other[t * PW], mrun[t]);
-      sh_store<E>(sh.data(), T, t, &run[t * PW]);
-    }
-    for (int s = T >> 1; s > 0; s >>= 1)
-      for (int t = 0; t < s; t++) {
-        sh_load<E>(&other[t * PW], sh.data(), T, t + s);
-        jac_add<E>(&run[t * PW], &run[t * PW], &other[t * PW]);
-        sh_store<E>(sh.data(), T, t, &run[t * PW]);
-      }
-    totals_write<E>(a, m, &run[0]);
+    const int nnz = totals_nnz(a, m);
+    const int TT = T > 0 ? T : 32 * totals_row_warps(nnz, min_run);
+    std::vector<uint32_t> loc(TT * PW);
+    for (int t = 0; t < TT; t++) totals_slice<E>(a, m, nnz, t, TT, &loc[t * PW]);
+    uint32_t res[PW];
+    reduce_threads<E>(loc, TT, res);
+    totals_write<E>(a, m, res);
   }
   for (auto& o : outs) { for (auto x : o) printf("%08x ", x); printf("\n"); }
+}
+
+template <class E> static const ZpSet* program_set() {
+  static ZpSet ps;
+  static bool built = zp_build_set(E::W / 12, &ps);
+  if (!built) { printf("program set too large\n"); exit(3); }
+  return &ps;
+}
+
+template <class E> static std::vector<std::vector<uint32_t>> read_planes(long long words) {
+  std::vector<std::vector<uint32_t>> planes(3 * E::W / 12, std::vector<uint32_t>(words));
+  for (auto& p : planes) for (auto& x : p) if (scanf("%x", &x) != 1) x = 0;
+  return planes;
+}
+
+template <class E> static void print_planes(std::vector<std::vector<uint32_t>>& planes) {
+  for (auto& p : planes) { for (auto x : p) printf("%08x ", x); printf("\n"); }
+}
+
+template <class E> static void ladder(int n_bits, long long count) {
+  auto planes = read_planes<E>(12 * count);
+  auto outs = planes;
+  std::vector<uint8_t> bits(n_bits * count);
+  for (auto& b : bits) { int v = 0; if (scanf("%d", &v) != 1) v = 0; b = (uint8_t)(v != 0); }
+  const uint32_t* in[6]; uint32_t* out[6];
+  for (size_t k = 0; k < planes.size(); k++) { in[k] = planes[k].data(); out[k] = outs[k].data(); }
+  const ZpSet* ps = program_set<E>();
+  std::vector<uint32_t> slots(ps->n_slots * 12);
+  for (long long pt = 0; pt < count; pt++)
+    zp_ladder<E>(ps, ZpGroup{slots.data(), 0, 1, 1u}, in, out, bits.data(), n_bits, count, pt, true);
+  print_planes<E>(outs);
+}
+
+template <class E> static void horner(int nw, int c, long long count) {
+  auto planes = read_planes<E>(12 * nw * count);
+  std::vector<std::vector<uint32_t>> outs(planes.size(), std::vector<uint32_t>(12 * count));
+  const uint32_t* in[6]; uint32_t* out[6];
+  for (size_t k = 0; k < planes.size(); k++) { in[k] = planes[k].data(); out[k] = outs[k].data(); }
+  const ZpSet* ps = program_set<E>();
+  std::vector<uint32_t> slots(ps->n_slots * 12);
+  for (long long pt = 0; pt < count; pt++)
+    zp_horner<E>(ps, ZpGroup{slots.data(), 0, 1, 1u}, in, out, nw, c, count, pt, true);
+  print_planes<E>(outs);
 }
 
 template <class E> static void column_scan(long long M, int T) {
@@ -104,9 +150,17 @@ int main() {
     else if (!strcmp(op, "g1")) point_ops<FqE>();
     else if (!strcmp(op, "g2")) point_ops<Fq2E>();
     else if (!strcmp(op, "k3")) {
-      int g2, N, T; long long M;
-      if (scanf("%d %d %lld %d", &g2, &N, &M, &T) != 4) return 2;
-      if (g2) totals<Fq2E>(N, M, T); else totals<FqE>(N, M, T);
+      int g2, N, T, R; long long M;
+      if (scanf("%d %d %lld %d %d", &g2, &N, &M, &T, &R) != 5) return 2;
+      if (g2) totals<Fq2E>(N, M, T, R); else totals<FqE>(N, M, T, R);
+    } else if (!strcmp(op, "lad")) {
+      int g2, n_bits; long long count;
+      if (scanf("%d %d %lld", &g2, &n_bits, &count) != 3) return 2;
+      if (g2) ladder<Fq2E>(n_bits, count); else ladder<FqE>(n_bits, count);
+    } else if (!strcmp(op, "hor")) {
+      int g2, nw, c; long long count;
+      if (scanf("%d %d %d %lld", &g2, &nw, &c, &count) != 4) return 2;
+      if (g2) horner<Fq2E>(nw, c, count); else horner<FqE>(nw, c, count);
     } else if (!strcmp(op, "cs")) {
       int g2, T; long long M;
       if (scanf("%d %lld %d", &g2, &M, &T) != 3) return 2;

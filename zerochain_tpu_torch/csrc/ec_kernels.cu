@@ -1,9 +1,15 @@
 // Jacobian point add and double for G1 (over Fq) and G2 (over Fq2), one
-// thread per point.
+// thread per point; and the two chains the prover runs on few points, each
+// in ONE launch: the double-and-add ladder (zc_ec_ladder) and the Horner
+// window combine (zc_ec_horner), one group of lanes per point
+// (group_program.cuh).
 //
 // Replaces: zerochain_tpu/ec/pallas_ec.py, the kernels built by
 // `_build_kernels` (add_kernel, double_kernel; public wrappers g1_add,
-// g1_double, g2_add, g2_double).
+// g1_double, g2_add, g2_double).  The JAX package runs the ladder
+// (ec/weierstrass.py: scalar_mul_bits_jac) and the Horner combine
+// (msm/suffix.py) as one compiled device loop over those group operations;
+// the two chain kernels are that loop.
 //
 // Bound on this card: integer operations.  A G1 add is 16 Fq multiplies
 // (4,608 32-bit multiply-adds) for 9*48 bytes moved; a G2 add is three times
@@ -15,9 +21,17 @@
 // multiply is an out-of-line function (one instance per kernel image) to
 // keep code size and compile time down; a G2 point is 72 words, so two
 // operands and the temporaries spill to local memory, which is accepted.
+//
+// The chains run 255 (ladder) or 31 x 9 (Horner) dependent group operations
+// on 32-96 points: far too few threads to fill the card, so a chain's time is
+// its step's latency.  A group of L lanes (L = 32: one warp per point) runs
+// each step as a program of Fq operations in stages, the independent
+// multiplies of a stage on separate lanes, the operands in shared memory
+// (group_program.cuh).  With L = 1 the same program runs on one lane per
+// point, which is the one-thread-per-point form the wrapper can also pick.
 #include <cuda_runtime.h>
 
-#include "jacobian.cuh"
+#include "group_program.cuh"
 
 namespace {
 
@@ -80,5 +94,104 @@ extern "C" int zc_ec_op(int g2, int op, const void* const* ptrs,
   else if (g2 && op == 0) ec_kernel<Fq2E, true><<<blocks, threads, 0, s>>>(pl, count);
   else if (g2 && op == 1) ec_kernel<Fq2E, false><<<blocks, threads, 0, s>>>(pl, count);
   else return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+constexpr int ZP_SMEM_LIMIT = 48 * 1024;  // without the opt-in attribute
+
+template <class E>
+__global__ void __launch_bounds__(32)
+ladder_kernel(const ZpSet* ps, Planes pl, const uint8_t* bits, int n_bits,
+              long long count, int L) {
+  extern __shared__ uint32_t zp_sh[];
+  const int gi = threadIdx.x / L;
+  const long long g = (long long)blockIdx.x * (blockDim.x / L) + gi;
+  const unsigned mask = blockDim.x >= 32 ? 0xffffffffu : (1u << blockDim.x) - 1u;
+  const ZpGroup grp{zp_sh + gi * ps->n_slots * 12, (int)(threadIdx.x % L), L, mask};
+  // a group past the end repeats the last point, so that every lane of the
+  // warp takes part in every barrier and vote, and writes nothing
+  zp_ladder<E>(ps, grp, pl.p, pl.out, bits, n_bits, count,
+               g < count ? g : count - 1, g < count);
+}
+
+template <class E>
+__global__ void __launch_bounds__(32)
+horner_kernel(const ZpSet* ps, Planes pl, int nw, int c, long long count, int L) {
+  extern __shared__ uint32_t zp_sh[];
+  const int gi = threadIdx.x / L;
+  const long long g = (long long)blockIdx.x * (blockDim.x / L) + gi;
+  const unsigned mask = blockDim.x >= 32 ? 0xffffffffu : (1u << blockDim.x) - 1u;
+  const ZpGroup grp{zp_sh + gi * ps->n_slots * 12, (int)(threadIdx.x % L), L, mask};
+  zp_horner<E>(ps, grp, pl.p, pl.out, nw, c, count, g < count ? g : count - 1,
+               g < count);
+}
+
+// Groups per block (one warp at most): as many as fit 32 lanes and the
+// shared-memory limit.
+int zp_groups_per_block(int L, int n_slots) {
+  int gpb = 32 / L;
+  while (gpb > 1 && gpb * n_slots * 48 > ZP_SMEM_LIMIT) gpb /= 2;
+  return gpb;
+}
+
+bool zp_lanes_ok(int L) { return L >= 1 && L <= 32 && !(L & (L - 1)); }
+
+Planes zp_planes(int np, const void* const* ptrs) {
+  Planes pl;
+  for (int k = 0; k < MAX_PLANES; ++k) {
+    pl.p[k] = k < np ? (const uint32_t*)ptrs[k] : nullptr;
+    pl.q[k] = nullptr;
+    pl.out[k] = k < np ? (uint32_t*)ptrs[np + k] : nullptr;
+  }
+  return pl;
+}
+
+}  // namespace
+
+// The program set of group_program.cuh for G1 (g2 = 0) or G2, written to
+// out (cap bytes).  Returns its size in bytes, or -1.  The caller copies it
+// to the device once and hands it to zc_ec_ladder / zc_ec_horner.
+extern "C" int zc_ec_programs(int g2, void* out, int cap) {
+  if (cap < (int)sizeof(ZpSet)) return -1;
+  if (!zp_build_set(g2 ? 2 : 1, (ZpSet*)out)) return -1;
+  return (int)sizeof(ZpSet);
+}
+
+// progs: the device copy of zc_ec_programs(g2); n_slots its first int.
+// ptrs: the base's planes (12, count) then the output's.  bits: (n_bits,
+// count) uint8, 0 or 1.  lanes: 1, 2, 4, ..., 32 lanes per point.
+extern "C" int zc_ec_ladder(int g2, const void* progs, int n_slots,
+                            const void* const* ptrs, const void* bits,
+                            int n_bits, long long count, int lanes,
+                            void* stream) {
+  if (!zp_lanes_ok(lanes) || n_slots < 1 || count < 1) return (int)cudaErrorInvalidValue;
+  const Planes pl = zp_planes(g2 ? 6 : 3, ptrs);
+  const int gpb = zp_groups_per_block(lanes, n_slots);
+  const unsigned blocks = (unsigned)((count + gpb - 1) / gpb);
+  const size_t smem = (size_t)gpb * n_slots * 48;
+  cudaStream_t s = (cudaStream_t)stream;
+  const ZpSet* ps = (const ZpSet*)progs;
+  const uint8_t* b = (const uint8_t*)bits;
+  if (g2) ladder_kernel<Fq2E><<<blocks, gpb * lanes, smem, s>>>(ps, pl, b, n_bits, count, lanes);
+  else ladder_kernel<FqE><<<blocks, gpb * lanes, smem, s>>>(ps, pl, b, n_bits, count, lanes);
+  return (int)cudaGetLastError();
+}
+
+// ptrs: the totals' planes (12, nw, count) then the output's (12, count).
+extern "C" int zc_ec_horner(int g2, const void* progs, int n_slots,
+                            const void* const* ptrs, int nw, int c,
+                            long long count, int lanes, void* stream) {
+  if (!zp_lanes_ok(lanes) || n_slots < 1 || count < 1 || nw < 1 || c < 0)
+    return (int)cudaErrorInvalidValue;
+  const Planes pl = zp_planes(g2 ? 6 : 3, ptrs);
+  const int gpb = zp_groups_per_block(lanes, n_slots);
+  const unsigned blocks = (unsigned)((count + gpb - 1) / gpb);
+  const size_t smem = (size_t)gpb * n_slots * 48;
+  cudaStream_t s = (cudaStream_t)stream;
+  const ZpSet* ps = (const ZpSet*)progs;
+  if (g2) horner_kernel<Fq2E><<<blocks, gpb * lanes, smem, s>>>(ps, pl, nw, c, count, lanes);
+  else horner_kernel<FqE><<<blocks, gpb * lanes, smem, s>>>(ps, pl, nw, c, count, lanes);
   return (int)cudaGetLastError();
 }

@@ -11,6 +11,14 @@ Both sides evaluate the same formulas (dbl-2009-l; add-2007-bl with the
 cases P = inf, Q = inf, P = Q, P = -Q) on canonical field elements, so the
 kernel and the plain version return identical words (tolerance 0).
 
+``ladder`` and ``horner`` wrap the two chain kernels of the same file: the
+little-endian double-and-add over bit planes (``scalar_mul_bits_jac``) and
+the MSB-first window combine ``res = 2^c * res + T_w`` of the MSMs, each in
+one launch, one group of lanes per point (``csrc/group_program.cuh``).  The
+JAX package runs both as one compiled loop over its group-law kernels;
+``ladder_plain`` and ``horner_plain`` are those loops over ``add_plain`` and
+``double_plain``, and the kernels return their words exactly.
+
 ``hs_add_select`` wraps ``csrc/hs_kernel.cu`` (the counterpart of the fused
 Hillis-Steele level ``hs_add_select`` of the same JAX module): one level of
 a segmented prefix scan, ``out = (f | keep) ? x : add(xl, x)``;
@@ -30,7 +38,12 @@ import torch
 from .. import _build
 
 launches = {"g1_add": 0, "g1_double": 0, "g2_add": 0, "g2_double": 0,
+            "g1_ladder": 0, "g2_ladder": 0, "g1_horner": 0, "g2_horner": 0,
             "g1_hs_add_select": 0, "g2_hs_add_select": 0}
+
+# Lanes per point of the chain kernels: 32 spreads a step's independent
+# multiplies over a warp; 1 runs the same program on one lane per point.
+CHAIN_LANES = 32
 
 
 def reset_launches() -> None:
@@ -113,6 +126,41 @@ def add_plain(F, p, q):
     return res
 
 
+def _select(F, cond, p, q):
+    return tuple(F.select(cond, a, b) for a, b in zip(p, q))
+
+
+def ladder_plain(F, base_jac, bits):
+    """Little-endian double-and-add: acc = identity, cur = base; per bit
+    acc = bit ? acc + cur : acc, cur = 2 * cur (not after the last bit)."""
+    F = F.plain
+    batch = F.batch_shape(base_jac[0])
+    dev = F.device(base_jac[0])
+    acc = (F.ones(batch, dev), F.ones(batch, dev), F.zeros(batch, dev))
+    cur = base_jac
+    n_bits = bits.shape[0]
+    for k in range(n_bits):
+        cand = add_plain(F, acc, cur)
+        acc = _select(F, bits[k].to(torch.bool), cand, acc)
+        if k + 1 < n_bits:
+            cur = double_plain(F, cur)
+    return acc
+
+
+def horner_plain(F, totals, c: int):
+    """Per-window totals, window axis in front of the batch (leaves (12, nw,
+    *batch)) -> res = T[nw-1]; res = 2^c * res + T[w] for w = nw-2 .. 0."""
+    F = F.plain
+    nw = F.leaves(totals[0])[0].shape[1]
+    res = tuple(F.map(lambda a: a[:, nw - 1], t) for t in totals)
+    for w in range(nw - 2, -1, -1):
+        for _ in range(c):
+            res = double_plain(F, res)
+        res = add_plain(F, res, tuple(F.map(lambda a, w=w: a[:, w], t)
+                                      for t in totals))
+    return res
+
+
 def hs_add_select_plain(F, xl, x, f, keep):
     """One Hillis-Steele level: x where f | keep, else add(xl, x)."""
     pass_ = torch.broadcast_to(f | keep, F.batch_shape(x[0]))
@@ -145,6 +193,127 @@ def _hs_fn():
         fn.restype = ctypes.c_int
         fn._typed = True
     return fn
+
+
+_programs: dict = {}
+
+
+def _chain_fn(name):
+    lib = _build.lib("ec_kernels")
+    fn = getattr(lib, name)
+    if not getattr(fn, "_typed", False):
+        head = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                ctypes.POINTER(ctypes.c_void_p)]
+        if name == "zc_ec_ladder":
+            fn.argtypes = head + [ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.c_longlong, ctypes.c_int,
+                                  ctypes.c_void_p]
+        else:
+            fn.argtypes = head + [ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_longlong, ctypes.c_int,
+                                  ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn._typed = True
+    return fn
+
+
+def program_bytes(g2: bool) -> bytes:
+    """The chain kernels' program set for G1 or G2 (``ZpSet`` of
+    csrc/group_program.cuh), built by the library on the host."""
+    fn = _build.lib("ec_kernels").zc_ec_programs
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    buf = ctypes.create_string_buffer(1 << 16)
+    size = fn(int(g2), buf, len(buf))
+    if size <= 0:
+        raise RuntimeError("zc_ec_programs failed")
+    return buf.raw[:size]
+
+
+def _program(F, device):
+    """-> (device uint8 tensor of the program set, its slot count)."""
+    key = (F.ncomp, device)
+    got = _programs.get(key)
+    if got is None:
+        raw = program_bytes(F.ncomp == 2)
+        n_slots = int.from_bytes(raw[:4], "little")
+        t = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(device)
+        got = _programs[key] = (t, n_slots)
+    return got
+
+
+def _chain_out(F, outs):
+    if F.ncomp == 1:
+        return tuple(outs)
+    return tuple((outs[2 * k], outs[2 * k + 1]) for k in range(3))
+
+
+def ladder(F, base_jac, bits, lanes=None):
+    """Little-endian double-and-add of Jacobian base points over bit planes
+    (n_bits, *batch) (any integer type, 0 or 1), in one launch."""
+    kind = _device_type(F, base_jac)
+    if kind == "cpu":
+        return ladder_plain(F, base_jac, bits)
+    if kind != "cuda":
+        raise ValueError(f"unsupported device {F.device(base_jac[0])}")
+    planes = _prepare(_planes(F, base_jac))
+    ref = planes[0]
+    batch = tuple(ref.shape[1:])
+    n_bits = bits.shape[0]
+    if tuple(bits.shape[1:]) != batch:
+        raise ValueError(f"bits {tuple(bits.shape)} do not match the batch {batch}")
+    if bits.device != ref.device:
+        raise ValueError("bits and points on different devices")
+    count = ref.numel() // 12
+    if n_bits == 0 or count == 0:  # nothing to launch: the identity
+        dev = ref.device
+        return (F.ones(batch, dev), F.ones(batch, dev), F.zeros(batch, dev))
+    b8 = (bits != 0).to(torch.uint8).contiguous()
+    outs = [torch.empty_like(ref) for _ in planes]
+    prog, n_slots = _program(F, ref.device)
+    ptrs = (ctypes.c_void_p * (2 * len(planes)))(
+        *[t.data_ptr() for t in planes], *[t.data_ptr() for t in outs])
+    with torch.cuda.device(ref.device):
+        rc = _chain_fn("zc_ec_ladder")(
+            int(F.ncomp == 2), prog.data_ptr(), n_slots, ptrs, b8.data_ptr(),
+            n_bits, count, lanes or CHAIN_LANES,
+            torch.cuda.current_stream().cuda_stream)
+    launches[("g1_" if F.ncomp == 1 else "g2_") + "ladder"] += 1
+    if rc != 0:
+        raise RuntimeError(f"ec ladder/{F.name}: CUDA error {rc}")
+    return _chain_out(F, outs)
+
+
+def horner(F, totals, c: int, lanes=None):
+    """Window totals (leaves (12, nw, *batch)) -> res = 2^c * res + T[w],
+    MSB first, in one launch."""
+    kind = _device_type(F, totals)
+    if kind == "cpu":
+        return horner_plain(F, totals, c)
+    if kind != "cuda":
+        raise ValueError(f"unsupported device {F.device(totals[0])}")
+    planes = _prepare(_planes(F, totals))
+    ref = planes[0]
+    if ref.dim() < 2:
+        raise ValueError("totals need a window axis after the 12 words")
+    nw = ref.shape[1]
+    batch = tuple(ref.shape[2:])
+    count = ref[0, 0].numel()
+    if nw == 1 or count == 0:  # nothing to launch: the top window
+        return tuple(F.map(lambda a: a[:, nw - 1], t) for t in totals)
+    outs = [torch.empty((12, *batch), dtype=torch.int32, device=ref.device)
+            for _ in planes]
+    prog, n_slots = _program(F, ref.device)
+    ptrs = (ctypes.c_void_p * (2 * len(planes)))(
+        *[t.data_ptr() for t in planes], *[t.data_ptr() for t in outs])
+    with torch.cuda.device(ref.device):
+        rc = _chain_fn("zc_ec_horner")(
+            int(F.ncomp == 2), prog.data_ptr(), n_slots, ptrs, nw, c, count,
+            lanes or CHAIN_LANES, torch.cuda.current_stream().cuda_stream)
+    launches[("g1_" if F.ncomp == 1 else "g2_") + "horner"] += 1
+    if rc != 0:
+        raise RuntimeError(f"ec horner/{F.name}: CUDA error {rc}")
+    return _chain_out(F, outs)
 
 
 def _planes(F, pt):

@@ -5,12 +5,11 @@ Jacobian add/double (core/pairing/src/bls12_381/ec.rs:300-530: infinity,
 P == Q, P == -Q) are handled over the whole batch.  Points: (X, Y, Z) field
 elements; infinity <=> Z == 0.  Generic over the field adapter
 (ec/fields.py), instantiated for G1 and G2.  ``add`` and ``double`` are the
-kernels of ec/cuda_ec.py; the rest is composed of them and of field ops.
+kernels of ec/cuda_ec.py, and so is the double-and-add ladder; the rest is
+composed of them and of field ops.
 """
 
 from __future__ import annotations
-
-import torch
 
 from . import cuda_ec
 
@@ -103,17 +102,9 @@ def normalize(F, p):
 
 def scalar_mul_bits_jac(F, base_jac, bits):
     """Batched double-and-add from a Jacobian base point batch over LE bit
-    tensors (n_bits, *batch)."""
-    batch = F.batch_shape(base_jac[0])
-    acc = identity(F, batch, F.device(base_jac[0]))
-    cur = base_jac
-    n_bits = bits.shape[0]
-    for k in range(n_bits):
-        cand = add(F, acc, cur)
-        acc = select(F, bits[k].to(torch.bool), cand, acc)
-        if k + 1 < n_bits:
-            cur = double(F, cur)
-    return acc
+    tensors (n_bits, *batch): one launch of the ladder kernel
+    (``cuda_ec.ladder``)."""
+    return cuda_ec.ladder(F, base_jac, bits)
 
 
 def scalar_mul_bits(F, base_affine, bits, base_inf=None):

@@ -108,19 +108,24 @@ def _fn():
     if not getattr(fn, "_typed", False):
         fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
                        ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fn._typed = True
     return fn
 
 
-def threads_for(n: int) -> int:
-    """Threads per program: 128, fewer for short chunks (runs of >= 8)."""
-    t = 128
-    while t > 1 and t * 8 > n:
-        t //= 2
-    return t
+# Non-zero digits a thread takes at least before its row gets more warps
+# (csrc/totals_kernel.cu: one warp up to 32 * MIN_RUN, two up to twice that,
+# else four).
+MIN_RUN = 32
+
+
+def row_threads(nnz: int, min_run: int = MIN_RUN) -> int:
+    """Threads the kernel gives a row of nnz non-zero digits."""
+    per_warp = 32 * min_run
+    return 32 if nnz <= per_warp else 64 if nnz <= 2 * per_warp else 128
 
 
 def window_totals(F, points, sorted_digits, order, nb: int):
@@ -158,9 +163,14 @@ def window_totals(F, points, sorted_digits, order, nb: int):
     if M:
         in_ptrs = (ctypes.c_void_p * len(planes))(*[t.data_ptr() for t in planes])
         out_ptrs = (ctypes.c_void_p * len(outs))(*[t.data_ptr() for t in outs])
+        # per row: up to 4 warps' partial sums and a count of finished warps
+        part = torch.empty(M * 4 * 3 * 12 * F.ncomp, dtype=torch.int32,
+                           device=dev)
+        done = torch.zeros(M, dtype=torch.int32, device=dev)
         with torch.cuda.device(dev):
             rc = _fn()(int(F.ncomp == 2), in_ptrs, sd.data_ptr(),
-                       od.data_ptr(), out_ptrs, N, M, threads_for(N),
+                       od.data_ptr(), out_ptrs, part.data_ptr(),
+                       done.data_ptr(), N, M, MIN_RUN,
                        torch.cuda.current_stream().cuda_stream)
         launches[("g1" if F.ncomp == 1 else "g2") + "_window_totals"] += 1
         if rc != 0:

@@ -251,13 +251,7 @@ class Msm:
         totals = tcat(parts, 1)  # (12, nw, *B)
 
         # combine windows MSB-first: res = 2^c * res + T_w
-        nw = self.n_windows
-        res = tmap(lambda a: a[:, nw - 1], totals)
-        for w in range(nw - 2, -1, -1):
-            for _ in range(self.c):
-                res = W.double(F, res)
-            res = W.add(F, res, tmap(lambda a: a[:, w], totals))
-        return res
+        return cuda_ec.horner(F, totals, self.c)
 
 
 def naive_msm(field, points_jac, bits):

@@ -28,6 +28,7 @@ import os
 
 import torch
 
+from ..ec import cuda_ec
 from ..ec import weierstrass as W
 from . import cuda_scan
 from .pippenger import WINDOW_C, tmap
@@ -227,15 +228,9 @@ class SuffixMsm:
 
     def combine(self, totals):
         """Per-window totals (window axis in front of the batch) -> final
-        point: Horner MSB-first, c doublings + 1 add per window."""
-        F = self.F
-        nw = self.n_windows
-        res = tmap(lambda a: a[:, nw - 1], totals)
-        for w in range(nw - 2, -1, -1):
-            for _ in range(self.c):
-                res = W.double(F, res)
-            res = W.add(F, res, tmap(lambda a: a[:, w], totals))
-        return res
+        point: Horner MSB-first, c doublings + 1 add per window, in one
+        launch of the Horner kernel (``cuda_ec.horner``)."""
+        return cuda_ec.horner(self.F, totals, self.c)
 
     def __call__(self, points, digits):
         """points: leaves (12, N); digits (nw, N, *batch) -> Jacobian point

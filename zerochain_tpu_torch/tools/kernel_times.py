@@ -1,0 +1,158 @@
+"""Time window_totals and the point chains of one checkout of the port.
+
+    python3 zerochain_tpu_torch/tools/kernel_times.py [--root DIR] [--tag T]
+        [--prove] [--no-synthetic] [--no-chains]
+
+Imports ``zerochain_tpu_torch`` and ``chip_smoke`` from DIR (default: the
+checkout this file is in), so that two checkouts can be timed in one call on
+one card, in turns (parent, change, change, parent), each in its own
+process: an older checkout unpacked from ``git archive`` into an ignored
+directory is timed by this file of the newer one.  Builds the kernels,
+generates the ConfidentialTransfer CRS and prints JSON lines:
+
+- ``window_totals`` on one 16,384-point chunk (G1 and G2) with uniform and
+  zero-heavy digits, and its sum over all chunks of the five MSMs on the
+  digits of the batch ``chip_smoke.py`` proves (B = 32): milliseconds per
+  launch by CUDA events, each launch checked against the plain version on a
+  2,048-point, 4-proof slice after normalisation;
+- where the checkout has them, the ladder (96 G1, 32 G2 points, 255 bits)
+  and the Horner combine (32 windows x 32, c = 8) with 32, 16, 8 and 1 lanes
+  a point, each checked word for word against its plain version;
+- with --prove: ``ConfidentialProver.prove`` of that batch, one warm call
+  then three timed ones (host clock around a synchronize, stage times with
+  ``sync_stages``), and the proofs' equality across the three.
+
+Needs a CUDA card; the first line is the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=str(pathlib.Path(__file__).resolve().parents[2]))
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--prove", action="store_true")
+    ap.add_argument("--no-synthetic", action="store_true")
+    ap.add_argument("--no-chains", action="store_true")
+    args = ap.parse_args()
+    sys.path.insert(0, str(pathlib.Path(args.root).resolve()))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke
+    from zerochain_tpu_torch import _build
+    from zerochain_tpu_torch.ec import cuda_ec
+    from zerochain_tpu_torch.ec import weierstrass as W
+    from zerochain_tpu_torch.ec.fields import FqOps, Fq2Ops
+    from zerochain_tpu_torch.ff import limbs as L
+    from zerochain_tpu_torch.msm import cuda_scan
+    from zerochain_tpu_torch.msm import pippenger as pip
+    from zerochain_tpu_torch.prover import ConfidentialProver
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+
+    def emit(**kw):
+        print(json.dumps({"tag": args.tag, **kw}), flush=True)
+
+    def leaves(p):
+        return [t for c in p for t in (c if isinstance(c, tuple) else (c,))]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+    _build.build_all()
+    prover = ConfidentialProver.from_toxic_waste(**chip_smoke.TOXIC)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+
+    def totals_ok(F, msm, chunk, scal):
+        small = pip.tmap(lambda t: t[:, :2048].contiguous(), chunk)
+        sd, od = msm.prep(msm.digits(scal[:, :2048, :4]))
+        got = W.normalize(F, cuda_scan.window_totals(F, small, sd, od, msm.nb))
+        want = W.normalize(F, cuda_scan.window_totals_plain(F, small, sd, od, msm.nb))
+        return same(got[:2], want[:2]) and torch.equal(got[2], want[2])
+
+    for F, msm, chunk in () if args.no_synthetic else (
+            (FqOps, prover.msm_g1, prover.h_chunks[0]),
+            (Fq2Ops, prover.msm_g2, prover.b2_chunks[0])):
+        N = pip.first_leaf(chunk).shape[-1]
+        for dist in ("uniform", "zero_heavy"):
+            scal = chip_smoke.random_elements(L.FR, (N, 32), gen)
+            if dist == "zero_heavy":
+                r = torch.rand((N, 32), generator=gen, device="cuda")
+                scal = torch.where((r < 0.9)[None], torch.zeros_like(scal), scal)
+                scal[0] = torch.where(r < 0.9, (r < 0.45).to(torch.int32), scal[0])
+            sd, od = msm.prep(msm.digits(scal))
+            emit(kernel="window_totals", group=F.name, digits=dist,
+                 equal=totals_ok(F, msm, chunk, scal),
+                 ms=chip_smoke.time_ms(lambda: cuda_scan.window_totals(
+                     F, chunk, sd, od, msm.nb), 3))
+
+    assignments = chip_smoke.assignments_for(32, False)
+    if args.prove:
+        import time
+
+        from zerochain_tpu_torch.mirror.field import R
+
+        rs = [((0xA5A5 + 977 * i) * 0x9E3779B97F4A7C15 % R,
+               (0x5A5A + 613 * i) * 0xC2B2AE3D27D4EB4F % R) for i in range(32)]
+        prover.sync_stages = True
+        first = prover.prove(assignments, rs=rs)
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = prover.prove(assignments, rs=rs)
+            torch.cuda.synchronize()
+            emit(kernel="prove", seconds=time.perf_counter() - t0,
+                 stages=prover.last_timings,
+                 same_proofs=[(p.a, p.b, p.c) for p in out]
+                 == [(p.a, p.b, p.c) for p in first])
+    inputs_host, witness_fn = prover._witness_fns()
+    aux, public = witness_fn(**inputs_host(assignments, prover.device))
+    preps = prover._digits(*prover._quotient(aux, public))
+    chunks = (prover.a_chunks, prover.b1_chunks, prover.b2_chunks,
+              prover.l_chunks, prover.h_chunks)
+    ms = {}
+    for name, ch, pr in zip(("a", "b1", "b2", "l", "h"), chunks, preps):
+        F, msm = ((Fq2Ops, prover.msm_g2) if name == "b2"
+                  else (FqOps, prover.msm_g1))
+        ms[name] = sum(chip_smoke.time_ms(lambda: cuda_scan.window_totals(
+            F, c, sd, od, msm.nb), 3) for c, (sd, od) in zip(ch, pr))
+    emit(kernel="window_totals", digits="real", ms_by_msm=ms, ms=sum(ms.values()))
+
+    if args.no_chains or not hasattr(cuda_ec, "ladder"):
+        return 0
+    for F, raw, n in ((FqOps, prover._raw_queries[0], 96),
+                      (Fq2Ops, prover._raw_queries[4], 32)):
+        base = pip.tmap(lambda t: t[:, :n].clone(), raw)
+        bits = torch.randint(0, 2, (255, n), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        want = cuda_ec.ladder_plain(F, base, bits)
+        for lanes in (32, 16, 8, 1):
+            run = lambda: cuda_ec.ladder(F, base, bits, lanes=lanes)  # noqa: E731
+            emit(kernel="ladder", group=F.name, points=n, lanes=lanes,
+                 equal=same(run(), want), ms=chip_smoke.time_ms(run, 3))
+    for F, raw in ((FqOps, prover._raw_queries[0]), (Fq2Ops, prover._raw_queries[4])):
+        tot = pip.tmap(lambda t: t[:, :1024].reshape(12, 32, 32).clone(), raw)
+        want = cuda_ec.horner_plain(F, tot, 8)
+        for lanes in (32, 16, 8, 1):
+            run = lambda: cuda_ec.horner(F, tot, 8, lanes=lanes)  # noqa: E731
+            emit(kernel="horner", group=F.name, lanes=lanes,
+                 equal=same(run(), want), ms=chip_smoke.time_ms(run, 3))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
