@@ -10,11 +10,16 @@ run exits non-zero (there is no CPU fallback):
   device   the card, its power limit, the torch/CUDA versions
   build    compiles csrc/*.cu with nvcc (all sources in parallel) and loads them
   crs      ConfidentialProver.from_toxic_waste on the card
+  witness  the batch's witness (confidential_witness) on the card, with its
+           kernel launches counted, equal word for word to the CPU plain
+           path's for the first and the last proof
   kernels  every kernel wrapper against its plain PyTorch version on the card,
            on CRS points and random field elements at the main path's shapes
            (the chain kernels, ladder and Horner, also in their one-lane form;
            window_totals also on the digits of the batch the prove phase
-           proves)
+           proves; the field inverse and the Jubjub chains at the witness
+           stage's shapes, the chains also against their former loop of
+           field-kernel launches)
   prove    one batch of 32 proofs (warm run, then a timed run with the launch
            counters zeroed just before and read just after)
   prove_hs     the same batch through the bucket MSM (msm_impl="hs", whose
@@ -38,11 +43,12 @@ A field or point kernel's "ms" is its time per launch inside a CUDA graph of
 20 launches (the card's own time); "eager_ms" is the time per launch of a
 back-to-back loop through the wrapper, which the host's launch cost bounds.
 
-All comparisons are exact (tolerance 0): field kernels, point add/double,
-the ladder, the Horner combine, hs_add_select and column_scan on identical
-words, window_totals after normalisation to affine coordinates.  Each kernel's launches are counted in
-the timed run of the path that uses it: prove for K1-K3, prove_hs for
-hs_add_select, prove_split for column_scan.
+All comparisons are exact (tolerance 0): field kernels and the inverse,
+point add/double, the ladder, the Horner combine, the Jubjub chains,
+hs_add_select and column_scan on identical words, window_totals after
+normalisation to affine coordinates.  Each kernel's launches are counted in
+the timed run of the path that uses it: prove for K1-K3, the inverse and the
+Jubjub chains, prove_hs for hs_add_select, prove_split for column_scan.
 """
 
 from __future__ import annotations
@@ -85,6 +91,33 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_entries(log: str) -> dict:
+    """Registers, spill-store and stack-frame bytes of each kernel entry in
+    an nvcc -Xptxas -v log, by the entry's demangled name without its
+    namespace and parameters (the mangled name where c++filt is missing)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+        if m and cur is not None:
+            cur["stack"], cur["spill"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    names = list(out)
+    if names and shutil.which("c++filt"):
+        plain = subprocess.run(["c++filt"], input="\n".join(names), text=True,
+                               capture_output=True, timeout=60).stdout.splitlines()
+        if len(plain) == len(names):
+            short = [re.sub(r"^void ", "", p.replace("(anonymous namespace)::", ""))
+                     .split("(")[0] for p in plain]
+            out = {k: out[n] for k, n in zip(short, names)}
+    return out
 
 
 def time_ms(fn, reps: int) -> float:
@@ -217,7 +250,9 @@ def phase_kernels(prover, B, gen, assignments):
                 name=f"ff.{op}.{spec.name}", route="cuda",
                 source="zerochain_tpu_torch/csrc/ff_kernels.cu",
                 replaces=TPU_FF, counter=("ff", f"{op}.{spec.name}"),
-                off_path=spec.name == "Fs",  # the prover has no Fs op
+                # the prover has no Fs op; since the inverse is one kernel,
+                # no path squares in Fr
+                off_path=spec.name == "Fs" or (spec.name, op) == ("Fr", "mont_sqr"),
                 shape=[n, *shape], equal=err == 0, max_abs_err=err,
                 ms=graph_ms(lambda: kern(*args)),
                 eager_ms=time_ms(lambda: kern(*args), 20), plain_ms=plain_ms,
@@ -233,7 +268,7 @@ def phase_kernels(prover, B, gen, assignments):
                         (Fq2Ops, prover._raw_queries[4], "g2")):
         sizes = (B, 3 * B, prover.msm_g1.n_windows * B) if tag == "g1" else (
             B, prover.msm_g2.n_windows * B)
-        for n_pts in sizes:
+        for n_pts in (max(n, 5) for n in sizes):  # room for the planted cases
             p, q = planted_pairs(F, raw, n_pts)
             for op, n_in in (("add", 2), ("double", 1)):
                 if op == "double" and n_pts > 3 * B:
@@ -259,6 +294,7 @@ def phase_kernels(prover, B, gen, assignments):
                     bound_ms=bnd, bound_by=by, library_ms=None))
 
     entries += chain_entries(prover, B, gen)
+    entries += witness_entries(prover, B, gen, assignments)
 
     # ---- K3: window_totals on one CRS chunk, all windows x B programs in
     # one launch, uniform and zero-heavy digits; P = Q, P = -Q planted at the
@@ -337,7 +373,7 @@ def chain_entries(prover, B, gen):
                           + group_op_ops(F.ncomp, "double"))
     for F, raw, n_pts, tag in ((FqOps, prover._raw_queries[0], 3 * B, "g1"),
                                (FqOps, prover._raw_queries[0], 2 * B, "g1"),
-                               (Fq2Ops, prover._raw_queries[4], B, "g2")):
+                               (Fq2Ops, prover._raw_queries[4], max(B, 3), "g2")):
         avail = pip.first_leaf(raw).shape[-1]
         idx = (torch.arange(n_pts, device="cuda") * 5 + 1) % avail
         base = W.add(F, pip.tmap(lambda t: t[:, idx].clone(), raw),
@@ -390,6 +426,156 @@ def chain_entry(F, name, counter, shape, kern, plain, n_bytes, n_ops):
         equal=err == 0 and err_one == 0, max_abs_err=max(err, err_one),
         ms=time_ms(kern, 3), one_lane_ms=time_ms(lambda: kern(1), 3),
         plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=None)
+
+
+FR_MUL_OPS = 2 * 8 * 8 + 8  # multiply-adds of one 8-word Montgomery multiply
+
+
+def fermat_muls(spec) -> int:
+    """Multiplies of one Fermat inverse a^(p-2), MSB first: a squaring for
+    every bit after the leading one, a multiply for every further one bit."""
+    e = spec.p - 2
+    return (e.bit_length() - 1) + (bin(e).count("1") - 1)
+
+
+def witness_entries(prover, B, gen, assignments):
+    """The witness stage's kernels at its shapes: ff.inv (Fr at the largest
+    stack the witness normalises, 252 steps x 5 chains x B; Fq at the
+    assembly's B; Fs, off every path, at the Fr shape) with zeros and ones
+    planted; the variable-base Jubjub chains (5 chains x B lanes x 252 bits,
+    bases the batch's own points, an all-zero and an all-one lane) and the
+    fixed-base chains (6 chains x B lanes x 84 windows of the table); each
+    chain also against its former loop of field-kernel launches (k1_loop_ms).
+    "ms" is one launch timed by CUDA events; us_per_mul = ms over the serial
+    multiplies of one thread, the latency reading of a serial chain."""
+    from zerochain_tpu_torch.ec import cuda_jubjub
+    from zerochain_tpu_torch.ec import jubjub as ej
+    from zerochain_tpu_torch.ff import cuda_ff
+    from zerochain_tpu_torch.ff import limbs as L
+    from zerochain_tpu_torch.prover import witness as wit
+
+    out = []
+    n_bits = 252
+    for spec, shape, off in ((L.FR, (n_bits * 5 * B,), False),
+                             (L.FQ, (max(B, 3),), False),
+                             (L.FS, (n_bits * 5 * B,), True)):
+        a = random_elements(spec, shape, gen)
+        flat = a.reshape(spec.n, -1)
+        flat[:, 5::97] = 0                            # planted zeros
+        flat[:, 6::89] = spec.array([spec.r_mod_p], "cuda")  # Montgomery ones
+        got = cuda_ff.inv(spec, a)
+        cuda_ff.inv_plain(spec, a)  # warm: the plain version caches its constants
+        want, plain_ms = timed(lambda: cuda_ff.inv_plain(spec, a))
+        err = max_abs_err([got], [want])
+        count = flat.shape[1]
+        muls = fermat_muls(spec)
+        bnd, by = bound_ms(2 * spec.n * 4 * count,
+                           muls * (2 * spec.n ** 2 + spec.n) * count)
+        ms = time_ms(lambda: cuda_ff.inv(spec, a), 3)
+        out.append(dict(
+            name=f"ff.inv.{spec.name}", route="cuda",
+            source="zerochain_tpu_torch/csrc/ff_kernels.cu", replaces=TPU_FF,
+            counter=("ff", f"inv.{spec.name}"), off_path=off,
+            shape=[spec.n, *shape], equal=err == 0, max_abs_err=err, ms=ms,
+            serial_mul=muls, us_per_mul=ms * 1e3 / muls, plain_ms=plain_ms,
+            bound_ms=bnd, bound_by=by, library_ms=None))
+
+    # variable-base chains: the batch's own Jubjub points as bases (those of
+    # the ConfidentialTransfer batch under --mini)
+    if "pgk" not in assignments[0]:
+        assignments = assignments_for(B, False)
+    ins = wit.witness_inputs_host(assignments, "cuda")
+    pts = [ins[k] for k in ("ekr", "ebl", "ebr", "pgk", "gep")]
+    bases = (torch.stack([p[0] for p in pts], dim=1),
+             torch.stack([p[1] for p in pts], dim=1))        # (8, 5, B)
+    bits = torch.randint(0, 2, (n_bits, 5, B), generator=gen, device="cuda",
+                         dtype=torch.int64)
+    bits[:, 0, 0] = 0
+    bits[:, 1, B - 1] = 1
+    lanes = 5 * B
+    var_muls = 1 + n_bits * 9 + (n_bits - 1) * 8  # T, the adds, the doubles
+    out.append(jubjub_entry(
+        "var_chain", [8, n_bits, 5, B],
+        lambda: cuda_jubjub.var_chain(bases, bits),
+        lambda: cuda_jubjub.var_chain_plain(bases, bits),
+        lambda: cuda_jubjub.var_chain_plain(bases, bits, ej.KERNEL_OPS),
+        n_bytes=2 * 8 * 4 * lanes + n_bits * lanes + 2 * 3 * 8 * 4 * n_bits * lanes,
+        serial=var_muls, lanes=lanes))
+
+    # fixed-base chains: window points of the table, digit 0 on one chain
+    n_win, nc = 84, 6
+    digits = torch.randint(0, 8, (n_win, nc, B), generator=gen, device="cuda")
+    digits[:, 2, 0] = 0
+    tx, ty = wit._table_mont("cuda")
+    idx = (digits + 8 * torch.arange(n_win, device="cuda").reshape(n_win, 1, 1))
+    lx = tx.index_select(1, idx.reshape(-1)).reshape(8, n_win, nc, B)
+    ly = ty.index_select(1, idx.reshape(-1)).reshape(8, n_win, nc, B)
+    lanes = nc * B
+    out.append(jubjub_entry(
+        "fixed_chain", [8, n_win, nc, B],
+        lambda: cuda_jubjub.fixed_chain(lx, ly),
+        lambda: cuda_jubjub.fixed_chain_plain(lx, ly),
+        lambda: cuda_jubjub.fixed_chain_plain(lx, ly, ej.KERNEL_OPS),
+        n_bytes=2 * 8 * 4 * n_win * lanes + 3 * 8 * 4 * (n_win - 1) * lanes,
+        serial=1 + (n_win - 1) * 10, lanes=lanes))  # a window's T, an add's 9
+    return out
+
+
+def jubjub_entry(name, shape, kern, plain, k1_loop, n_bytes, serial, lanes):
+    """A Jubjub chain kernel against its plain version and its former loop
+    of field-kernel launches, word for word."""
+    leaves = lambda r: list(r) if isinstance(r, tuple) else [r]  # noqa: E731
+    want, plain_ms = timed(plain)
+    err = max_abs_err(leaves(kern()), leaves(want))
+    loop, k1_loop_ms = timed(k1_loop)
+    err = max(err, max_abs_err(leaves(loop), leaves(want)))
+    ms = time_ms(kern, 3)
+    bnd, by = bound_ms(n_bytes, serial * FR_MUL_OPS * lanes)
+    return dict(
+        name=f"jubjub.{name}", route="cuda",
+        source="zerochain_tpu_torch/csrc/jubjub_kernels.cu", replaces=TPU_FF,
+        counter=("jj", name), shape=shape, equal=err == 0, max_abs_err=err,
+        ms=ms, serial_mul=serial, us_per_mul=ms * 1e3 / serial,
+        k1_loop_ms=k1_loop_ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+        library_ms=None)
+
+
+def phase_witness(prover, assignments, B, mini):
+    """The batch's witness on the card, launches counted around it, against
+    the CPU plain path's for the first and the last proof, word for word."""
+    from zerochain_tpu_torch.ec import cuda_ec, cuda_jubjub
+    from zerochain_tpu_torch.ff import cuda_ff
+    from zerochain_tpu_torch.msm import cuda_scan
+
+    inputs_host, witness_fn = prover._witness_fns()
+    witness_fn(**inputs_host(assignments, prover.device))  # warm
+    for mod in (cuda_ff, cuda_ec, cuda_scan, cuda_jubjub):
+        mod.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    aux, public = witness_fn(**inputs_host(assignments, prover.device))
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    ff = {k: v for k, v in cuda_ff.launches.items() if v}
+    jj = dict(cuda_jubjub.launches)
+    others = sum(cuda_ec.launches.values()) + sum(cuda_scan.launches.values())
+    picks = [0, B - 1]
+    t0 = time.time()
+    caux, cpub = witness_fn(**inputs_host([assignments[b] for b in picks], "cpu"))
+    cpu_s = time.time() - t0
+    equal = (torch.equal(aux[:, :, picks].cpu(), caux)
+             and torch.equal(public[:, :, picks].cpu(), cpub))
+    k1 = sum(ff.values())
+    emit("witness", batch=B, seconds=secs, cpu_seconds_two_proofs=cpu_s,
+         aux=list(aux.shape), k1_launches=k1,
+         k1_launches_inv=sum(v for k, v in ff.items() if k.startswith("inv.")),
+         k1_by_op=ff, jubjub_launches=jj, other_launches=others,
+         equal_to_cpu=equal, proofs_checked=picks)
+    if not equal:
+        raise SystemExit("witness: the card's aux/public differ from the CPU's")
+    if jj != {"var_chain": int(not mini), "fixed_chain": 1}:
+        raise SystemExit(f"witness: chain launches {jj}, expected one a group")
+    return k1
 
 
 def totals_entry(F, msm, chunks, preps, tag, proofs=None):
@@ -659,7 +845,7 @@ def main() -> int:
         return 2
 
     from zerochain_tpu_torch import _build
-    from zerochain_tpu_torch.ec import cuda_ec
+    from zerochain_tpu_torch.ec import cuda_ec, cuda_jubjub
     from zerochain_tpu_torch.ff import cuda_ff
     from zerochain_tpu_torch.groth16.core import (
         create_proof, generate_parameters, prepare_verifying_key, verify_proof)
@@ -689,7 +875,8 @@ def main() -> int:
         stack = [int(x) for x in re.findall(r"(\d+) bytes stack frame", log)]
         ptxas[name] = dict(max_registers=max(regs, default=None),
                            max_spill_store_bytes=max(spills, default=None),
-                           max_stack_frame_bytes=max(stack, default=None))
+                           max_stack_frame_bytes=max(stack, default=None),
+                           entries=ptxas_entries(log))
     emit("build", seconds=time.time() - t0, ptxas=ptxas)
 
     gen = torch.Generator(device="cuda")
@@ -711,6 +898,7 @@ def main() -> int:
                      l=prover.msm_chunk_l, h=prover.msm_chunk_h))
 
     assignments = assignments_for(B, args.mini)
+    phase_witness(prover, assignments, B, args.mini)
     t0 = time.time()
     entries = phase_kernels(prover, B, gen, assignments)
     emit("kernels", seconds=time.time() - t0,
@@ -726,7 +914,7 @@ def main() -> int:
     rs = [((0xA5A5 + 977 * i) * 0x9E3779B97F4A7C15 % R,
            (0x5A5A + 613 * i) * 0xC2B2AE3D27D4EB4F % R) for i in range(B)]
     counters = {"ff": cuda_ff.launches, "ec": cuda_ec.launches,
-                "scan": cuda_scan.launches}
+                "scan": cuda_scan.launches, "jj": cuda_jubjub.launches}
 
     def drive(p, phase):
         """One warm prove, then a timed one with every launch counter
@@ -736,9 +924,8 @@ def main() -> int:
         p.prove(assignments, rs=rs)
         torch.cuda.synchronize()
         warm_s = time.time() - t0
-        cuda_ff.reset_launches()
-        cuda_ec.reset_launches()
-        cuda_scan.reset_launches()
+        for mod in (cuda_ff, cuda_ec, cuda_scan, cuda_jubjub):
+            mod.reset_launches()
         torch.cuda.synchronize()
         t0 = time.time()
         out = p.prove(assignments, rs=rs)
@@ -781,9 +968,8 @@ def main() -> int:
     gen_s = time.time() - t0
     if params.vk != prover.vk:
         raise SystemExit("backend: generate_parameters gave another verifying key")
-    cuda_ff.reset_launches()
-    cuda_ec.reset_launches()
-    cuda_scan.reset_launches()
+    for mod in (cuda_ff, cuda_ec, cuda_scan, cuda_jubjub):
+        mod.reset_launches()
     t0 = time.time()
     backend_proof = create_proof(prover.circuit_for(assignments[0]), params,
                                  *rs[0], backend=backend)
@@ -834,8 +1020,11 @@ def main() -> int:
     # lane a point; nonzero_digits, row_nonzero_q, n_add: what a
     # data-dependent bound was computed from; path: the run whose launches
     # are counted
+    # serial_mul, us_per_mul: a serial chain's multiplies a thread and its
+    # time over them; k1_loop_ms: a Jubjub chain as its former loop of
+    # field-kernel launches
     extras = ("eager_ms", "one_lane_ms", "nonzero_digits", "row_nonzero_q",
-              "n_add", "path")
+              "n_add", "path", "serial_mul", "us_per_mul", "k1_loop_ms")
     print(json.dumps({"kernels": [
         {**{k: e[k] for k in keys}, **{k: e[k] for k in extras if k in e}}
         for e in entries]}), flush=True)

@@ -8,8 +8,11 @@ and feeds it the same inputs as the plain versions: field ops and point
 add/double/mixed-add word for word, ``window_totals`` (each row's threads
 stepped through in order and summed as the kernel sums them) after
 ``normalize``, ``column_scan`` (every lane stepped through) word for word,
-and the chain programs of ``group_program.cuh`` (the ladder and the Horner
-combine, one lane a group) word for word.  All comparisons are exact
+the chain programs of ``group_program.cuh`` (the ladder and the Horner
+combine, one lane a group) word for word, and the witness stage's kernels
+word for word: the Fermat inverse of ``ff_kernels.cu``, the Edwards add and
+double of ``edwards.cuh`` and the per-lane Jubjub chains of
+``jubjub_kernels.cu``.  All comparisons are exact
 (tolerance 0).  The kernels themselves run only on a card, where
 ``chip_smoke.py`` checks them; this covers their arithmetic and control flow
 where there is none."""
@@ -23,14 +26,18 @@ import pytest
 import torch
 
 from zerochain_tpu_torch.ec import cuda_ec
+from zerochain_tpu_torch.ec import cuda_jubjub
 from zerochain_tpu_torch.ec import g1 as tg1
 from zerochain_tpu_torch.ec import g2 as tg2
+from zerochain_tpu_torch.ec import jubjub as tej
 from zerochain_tpu_torch.ff import cuda_ff
 from zerochain_tpu_torch.ff import limbs as TL
 from zerochain_tpu_torch.mirror import curves as cv
+from zerochain_tpu_torch.mirror import jubjub as mjj
 from zerochain_tpu_torch.mirror.field import R
 from zerochain_tpu_torch.msm import cuda_scan
 from zerochain_tpu_torch.msm.suffix import SuffixMsm
+from zerochain_tpu_torch.prover import witness as twit
 
 torch.set_num_threads(2)  # several test workers share the cores
 
@@ -285,3 +292,103 @@ def test_column_scan_lanes(host_bin, name):
     text += "\n".join(_hex(pl) for pl in planes) + "\n"
     lines = _run(host_bin, text)
     assert lines == [_hex(pl).split() for pl in cuda_ec._planes(F, want)]
+
+
+@pytest.mark.parametrize("name", ["fq", "fr", "fs"])
+def test_field_inverse(host_bin, name):
+    """The one-thread Fermat power of zc_ff_inv against inv_plain (the
+    Montgomery trick), with zeros and ones planted among random elements."""
+    spec = {"fq": TL.FQ, "fr": TL.FR, "fs": TL.FS}[name]
+    rng = np.random.RandomState(71)
+    p = spec.p
+    vals = [0, 1, p - 1, 2, 0, spec.r_mod_p, 1, 0]
+    vals += [int.from_bytes(rng.bytes(48), "little") % p for _ in range(24)]
+    a = spec.array(vals, "cpu")
+    got = _run(host_bin, "\n".join(f"{name}i {_hex(a[:, i])}" for i in range(len(vals))))
+    want = cuda_ff.inv_plain(spec, a)
+    assert got == [_hex(want[:, i]).split() for i in range(len(vals))]
+    ints = spec.to_ints(want, mont=True)
+    assert all((v * w - 1) % p == 0 if v % p else w == 0
+               for v, w in zip(spec.to_ints(a, mont=True), ints))
+
+
+def _jubjub_points(rng, n):
+    gen = mjj.generator(mjj.NOTE_COMMITMENT_RANDOMNESS)
+    base = [mjj.mul(gen, int(rng.randint(2, 1 << 30))) for _ in range(6)]
+    return [base[int(rng.randint(0, 6))] for _ in range(n)]
+
+
+def _ext_col(pt, i):
+    return " ".join(_hex(c[:, i]) for c in pt)
+
+
+def test_edwards_ops(host_bin):
+    """edwards.cuh's add and double (and add in place) against ec/jubjub.py's
+    on the plain field ops: general points with Z != 1, P = Q, P = -Q and the
+    identity on either side."""
+    rng = np.random.RandomState(73)
+    pts = _jubjub_points(rng, 6)
+    qts = _jubjub_points(rng, 6)
+    qts[1] = pts[1]
+    qts[2] = mjj.neg(pts[2])
+    pts[3] = mjj.ZERO
+    qts[4] = mjj.ZERO
+    ops = tej.PLAIN_OPS
+    p = tej.double(tej.to_extended(pts, device="cpu"), ops)  # Z != 1
+    q = tej.double(tej.to_extended(qts, device="cpu"), ops)
+    got = _run(host_bin, "\n".join(f"jj {_ext_col(p, i)} {_ext_col(q, i)}"
+                                    for i in range(6)))
+    add, dbl = tej.add(p, q, ops), tej.double(p, ops)
+    want = []
+    for i in range(6):
+        want += [_ext_col(add, i).split(), _ext_col(dbl, i).split(),
+                 _ext_col(add, i).split()]
+    assert got == want
+
+
+def _words_of(line, shape):
+    w = torch.tensor([int(x, 16) for x in line], dtype=torch.int64)
+    return ((w << 32) >> 32).to(torch.int32).reshape(shape)
+
+
+@pytest.mark.parametrize("n_bits", [252, 32])
+def test_jubjub_var_chain_lanes(host_bin, n_bits):
+    """jj_var_lane on every lane of C = 5 chains x B = 3 proofs against
+    var_chain_plain, word for word: seeded bits with an all-zero and an
+    all-one lane, an all-zero and an all-one step, and the identity as one
+    base."""
+    C, B = 5, 3
+    rng = np.random.RandomState(79 + n_bits)
+    pts = _jubjub_points(rng, C * B)
+    pts[7] = mjj.ZERO
+    x, y = twit.affine_mont_host(pts, "cpu")
+    bases = (x.reshape(8, C, B), y.reshape(8, C, B))
+    bits = torch.from_numpy(rng.randint(0, 2, (n_bits, C, B))).to(torch.int64)
+    bits[:, 0, 0] = 0
+    bits[:, 1, 2] = 1
+    bits[3] = 0
+    bits[5] = 1
+    want_cur, want_res = cuda_jubjub.var_chain_plain(bases, bits)
+    text = f"jvar {n_bits} {C * B}\n{_hex(bases[0])}\n{_hex(bases[1])}\n"
+    text += " ".join(map(str, bits.reshape(-1).tolist())) + "\n"
+    cur, res = _run(host_bin, text)
+    assert torch.equal(_words_of(cur, want_cur.shape), want_cur)
+    assert torch.equal(_words_of(res, want_res.shape), want_res)
+
+
+def test_jubjub_fixed_chain_lanes(host_bin):
+    """jj_fixed_lane on 6 chains x 3 proofs of window points looked up as the
+    witness looks them up (digit 0 planted on whole chains) against
+    fixed_chain_plain, word for word."""
+    nc, B, nw = 6, 3, 84
+    rng = np.random.RandomState(83)
+    digits = torch.from_numpy(rng.randint(0, 8, (nw, nc, B))).to(torch.int64)
+    digits[:, 0, 1] = 0
+    digits[:, 4, 2] = 7
+    tx, ty = twit._table_mont("cpu")
+    flat = (digits + 8 * torch.arange(nw).reshape(nw, 1, 1)).reshape(-1)
+    lx = tx.index_select(1, flat).reshape(8, nw, nc, B)
+    ly = ty.index_select(1, flat).reshape(8, nw, nc, B)
+    want = cuda_jubjub.fixed_chain_plain(lx, ly)
+    (got,) = _run(host_bin, f"jfix {nw} {nc * B}\n{_hex(lx)}\n{_hex(ly)}\n")
+    assert torch.equal(_words_of(got, want.shape), want)

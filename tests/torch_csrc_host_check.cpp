@@ -1,7 +1,8 @@
 // Host build of the port's CUDA device code (zerochain_tpu_torch/csrc): the
 // headers, the per-thread steps of totals_kernel.cu and
-// column_scan_kernel.cu and the one-lane chain programs of
-// group_program.cuh compile as plain C++,
+// column_scan_kernel.cu, the one-lane chain programs of
+// group_program.cuh, the Fermat inverse of ff_kernels.cu and the per-lane
+// Jubjub chains of jubjub_kernels.cu compile as plain C++,
 // so their arithmetic can be held against the plain PyTorch versions where
 // there is no CUDA toolkit.  Driven by tests/test_torch_csrc_host.py.
 //
@@ -12,6 +13,10 @@
 //   cs g2 M T  planes               -> the column scan in place, one line a plane
 //   lad g2 n_bits count  planes bits -> the ladder, one line a plane
 //   hor g2 nw c count  planes        -> the Horner combine, one line a plane
+//   fqi|fri|fsi a                    -> a^(p-2)                        (hex words)
+//   jj        p q                    -> jj_add, jj_double(p), jj_add in place
+//   jvar n_bits lanes  bx by bits    -> cur, then res, one line each
+//   jfix n_win lanes  lx ly          -> the window sums, one line
 // Threads are stepped through in order, a barrier being the end of a loop
 // over the threads.  k3: T threads a row (T = 0: as many as the kernel gives
 // the row for its non-zero count, R non-zero digits a thread at least),
@@ -22,7 +27,9 @@
 #include <vector>
 
 #include "column_scan_kernel.cu"
+#include "ff_kernels.cu"
 #include "group_program.cuh"
+#include "jubjub_kernels.cu"
 #include "totals_kernel.cu"
 
 template <int N> static void rd(uint32_t* a) { for (int i = 0; i < N; i++) if (scanf("%x", &a[i]) != 1) a[i] = 0; }
@@ -34,6 +41,50 @@ template <class F> static void field_ops() {
   fp_mont_mul<F>(r, a, b); pr<F::N>(r);
   fp_add<F>(r, a, b); pr<F::N>(r);
   fp_sub<F>(r, a, b); pr<F::N>(r);
+}
+
+template <class F> static void field_inv() {
+  uint32_t a[F::N], r[F::N];
+  rd<F::N>(a);
+  fp_inv_fermat<F>(r, a); pr<F::N>(r);
+}
+
+static void edwards_ops() {
+  uint32_t p[ZC_JJ_PW], q[ZC_JJ_PW], r[ZC_JJ_PW];
+  rd<ZC_JJ_PW>(p); rd<ZC_JJ_PW>(q);
+  jj_add(r, p, q); pr<ZC_JJ_PW>(r);
+  jj_double(r, p); pr<ZC_JJ_PW>(r);
+  jj_add(p, p, q); pr<ZC_JJ_PW>(p);
+}
+
+static std::vector<uint32_t> read_words(long long n) {
+  std::vector<uint32_t> v(n);
+  for (auto& x : v) if (scanf("%x", &x) != 1) x = 0;
+  return v;
+}
+
+static void print_words(const std::vector<uint32_t>& v) {
+  for (auto x : v) printf("%08x ", x);
+  printf("\n");
+}
+
+static void jj_var(int n_bits, long long lanes) {
+  auto bx = read_words(8 * lanes), by = read_words(8 * lanes);
+  std::vector<uint8_t> bits(n_bits * lanes);
+  for (auto& b : bits) { int v = 0; if (scanf("%d", &v) != 1) v = 0; b = (uint8_t)(v != 0); }
+  std::vector<uint32_t> cur(24 * n_bits * lanes), res(cur.size());
+  JjVarArgs a{bx.data(), by.data(), bits.data(), cur.data(), res.data(), n_bits, lanes};
+  for (long long lane = 0; lane < lanes; lane++) jj_var_lane(a, lane);
+  print_words(cur);
+  print_words(res);
+}
+
+static void jj_fixed(int n_win, long long lanes) {
+  auto lx = read_words(8 * n_win * lanes), ly = read_words(8 * n_win * lanes);
+  std::vector<uint32_t> out(24 * (n_win - 1) * lanes);
+  JjFixedArgs a{lx.data(), ly.data(), out.data(), n_win, lanes};
+  for (long long lane = 0; lane < lanes; lane++) jj_fixed_lane(a, lane);
+  print_words(out);
 }
 
 template <class E> static void point_ops() {
@@ -147,6 +198,19 @@ int main() {
     if (!strcmp(op, "fq")) field_ops<FqP>();
     else if (!strcmp(op, "fr")) field_ops<FrP>();
     else if (!strcmp(op, "fs")) field_ops<FsP>();
+    else if (!strcmp(op, "fqi")) field_inv<FqP>();
+    else if (!strcmp(op, "fri")) field_inv<FrP>();
+    else if (!strcmp(op, "fsi")) field_inv<FsP>();
+    else if (!strcmp(op, "jj")) edwards_ops();
+    else if (!strcmp(op, "jvar")) {
+      int n_bits; long long lanes;
+      if (scanf("%d %lld", &n_bits, &lanes) != 2) return 2;
+      jj_var(n_bits, lanes);
+    } else if (!strcmp(op, "jfix")) {
+      int n_win; long long lanes;
+      if (scanf("%d %lld", &n_win, &lanes) != 2) return 2;
+      jj_fixed(n_win, lanes);
+    }
     else if (!strcmp(op, "g1")) point_ops<FqE>();
     else if (!strcmp(op, "g2")) point_ops<Fq2E>();
     else if (!strcmp(op, "k3")) {

@@ -8,15 +8,19 @@ batch_normalization, core/pairing/src/bls12_381/ec.rs:246).
 
 Replaces the reference's per-scalar double-and-add (core/jubjub/src/curve/
 edwards.rs:520-574) with bit-sliced batched chains.  Composed of the field
-kernels of ff/cuda_ff.py; there is no kernel of its own here.
+kernels of ff/cuda_ff.py (``KERNEL_OPS``), or of their plain versions
+(``PLAIN_OPS``) where ``add`` and ``double`` are the plain versions of the
+chain kernels of ec/cuda_jubjub.py, which run the same formulas on the card.
 """
 
 from __future__ import annotations
 
 from functools import partial
+from types import SimpleNamespace
 
 import torch
 
+from ..ff import cuda_ff
 from ..ff import limbs as L
 from ..mirror import jubjub as mjj
 from ..mirror.field import R
@@ -30,6 +34,20 @@ _D2_MONT = 2 * mjj.EDWARDS_D * FR.r_mod_p % R
 mul = partial(L.mont_mul, FR)
 sub = partial(L.sub, FR)
 addf = partial(L.add, FR)
+
+
+def _plain(op):
+    def f(a, b):
+        return op(FR, *torch.broadcast_tensors(a, b))
+    return f
+
+
+# the Fr ops of the group law: the field kernels' wrappers, or their plain
+# versions whatever the device
+KERNEL_OPS = SimpleNamespace(mul=mul, sub=sub, add=addf)
+PLAIN_OPS = SimpleNamespace(mul=_plain(cuda_ff.mont_mul_plain),
+                            sub=_plain(cuda_ff.sub_plain),
+                            add=_plain(cuda_ff.add_plain))
 
 
 # ---------------------------------------------------------------------
@@ -54,6 +72,12 @@ def to_affine_host(pt):
     return list(zip(FR.to_ints(x, mont=True), FR.to_ints(y, mont=True)))
 
 
+def ext_from_affine(x, y, ops=KERNEL_OPS):
+    """Affine (x, y) word tensors -> (x : y : 1 : xy)."""
+    one = L.ones_mont(FR, x.shape[1:], x.device)
+    return (x, y, one, ops.mul(x, y))
+
+
 def identity(batch=(), device=None):
     """(0 : 1 : 1 : 0)"""
     zero = L.zeros(FR, batch, device)
@@ -64,8 +88,9 @@ def identity(batch=(), device=None):
 # ---------------------------------------------------------------------
 # group law (unified, batched)
 # ---------------------------------------------------------------------
-def add(p, q):
+def add(p, q, ops=KERNEL_OPS):
     """Unified extended addition, 9M (complete for a=-1)."""
+    mul, sub, addf = ops.mul, ops.sub, ops.add
     X1, Y1, Z1, T1 = p
     X2, Y2, Z2, T2 = q
     a = mul(sub(Y1, X1), sub(Y2, X2))
@@ -80,8 +105,9 @@ def add(p, q):
     return (mul(e, f), mul(g, h), mul(f, g), mul(e, h))
 
 
-def double(p):
+def double(p, ops=KERNEL_OPS):
     """Unified extended doubling, 4M + 4S."""
+    mul, sub, addf = ops.mul, ops.sub, ops.add
     X1, Y1, Z1, _ = p
     a = mul(X1, X1)
     b = mul(Y1, Y1)
@@ -91,7 +117,8 @@ def double(p):
     e = sub(sub(mul(xy, xy), a), b)
     g = sub(b, a)  # a*A + B with a = -1
     f = sub(g, c)
-    h = L.neg(FR, addf(a, b))
+    ab = addf(a, b)
+    h = sub(torch.zeros_like(ab), ab)  # L.neg
     return (mul(e, f), mul(g, h), mul(f, g), mul(e, h))
 
 

@@ -1,10 +1,15 @@
-"""Montgomery field kernels for Hopper: ``mont_mul``, ``mont_sqr``, ``add``, ``sub``.
+"""Montgomery field kernels for Hopper: ``mont_mul``, ``mont_sqr``, ``add``, ``sub``, ``inv``.
 
 Each public function here is a wrapper around one CUDA kernel of
 ``csrc/ff_kernels.cu`` (the counterpart of the Pallas field kernels of
 ``zerochain_tpu/ff/pallas_ff.py``) and has its plain PyTorch version beside
 it.  A wrapper takes the plain version only when its tensors lie on the CPU;
 for a CUDA tensor it launches the kernel or raises.
+
+``inv`` inverts every element in one launch (a Fermat power a thread); its
+plain version ``inv_plain`` is the Montgomery trick the JAX package composes
+of the four base ops (``zerochain_tpu/ff/limbs.py: batch_inv_mont``).  Zero
+maps to zero.
 
 Format: an element batch is an ``int32`` tensor ``(n_words, *batch)`` holding
 the bit patterns of 32-bit words, least significant word first, canonical in
@@ -31,7 +36,7 @@ M32 = 0xFFFFFFFF
 
 # launches of each kernel (bumped where the kernel is launched, nowhere else)
 launches = {f"{op}.{f}": 0 for f in ("Fq", "Fr", "Fs")
-            for op in ("mont_mul", "mont_sqr", "add", "sub")}
+            for op in ("mont_mul", "mont_sqr", "add", "sub", "inv")}
 
 _FIELD_ID = {"Fq": 0, "Fr": 1, "Fs": 2}
 _OP_ID = {"mont_mul": 0, "mont_sqr": 1, "add": 2, "sub": 3}
@@ -208,6 +213,49 @@ def mont_sqr_plain(spec, a):
     return mont_mul_plain(spec, a, a)
 
 
+def _word_col(spec, v, device):
+    """The words of the integer v as an (n, 1) int32 column."""
+    words = [(v >> (32 * i)) & M32 for i in range(spec.n)]
+    return _narrow(torch.tensor(words, dtype=torch.int64, device=device))[:, None]
+
+
+def _scan_mul_plain(spec, a, reverse=False):
+    """Inclusive prefix (or suffix) products along axis 1 at log depth."""
+    k = a.shape[1]
+    if reverse:
+        a = a.flip(1)
+    s = 1
+    while s < k:
+        a = torch.cat([a[:, :s], mont_mul_plain(spec, a[:, s:], a[:, :k - s])], dim=1)
+        s *= 2
+    return a.flip(1) if reverse else a
+
+
+def inv_plain(spec, a):
+    """Elementwise inverse in the Montgomery domain, zero -> zero, by the
+    Montgomery trick over the flattened batch: one Fermat power plus
+    O(k log k) multiplies, a_i^-1 = prefix_{i-1} * suffix_{i+1} / total."""
+    flat = a.reshape(spec.n, -1)
+    k = flat.shape[1]
+    if k == 0:
+        return a.clone()
+    one = _word_col(spec, spec.r_mod_p, a.device)
+    zmask = (flat == 0).all(dim=0)[None]
+    safe = torch.where(zmask, one, flat)
+    prefix = _scan_mul_plain(spec, safe)
+    suffix = _scan_mul_plain(spec, safe, reverse=True)
+    total_inv = prefix[:, k - 1:]
+    for bit in bin(spec.p - 2)[3:]:  # MSB first, the leading 1 is total
+        total_inv = mont_sqr_plain(spec, total_inv)
+        if bit == "1":
+            total_inv = mont_mul_plain(spec, total_inv, prefix[:, k - 1:])
+    before = torch.cat([one, prefix[:, :k - 1]], dim=1)
+    after = torch.cat([suffix[:, 1:], one], dim=1)
+    invs = mont_mul_plain(spec, mont_mul_plain(spec, before, after),
+                          total_inv.expand(spec.n, k))
+    return torch.where(zmask, torch.zeros_like(flat), invs).reshape(a.shape)
+
+
 _PLAIN = {
     "mont_mul": mont_mul_plain,
     "mont_sqr": lambda spec, a, b: mont_sqr_plain(spec, a),
@@ -226,6 +274,16 @@ def _fn():
         fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                        ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn._typed = True
+    return fn
+
+
+def _inv_fn():
+    fn = _build.lib("ff_kernels").zc_ff_inv
+    if not getattr(fn, "_typed", False):
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fn._typed = True
     return fn
@@ -281,3 +339,24 @@ def add(spec, a, b):
 
 def sub(spec, a, b):
     return _binary("sub", spec, a, b)
+
+
+def inv(spec, a):
+    """a^-1 of every element (zero -> zero), Montgomery in and out."""
+    _check(spec, a)
+    if a.device.type == "cpu":
+        return inv_plain(spec, a)
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    a = a.contiguous()
+    out = torch.empty_like(a)
+    count = a.numel() // spec.n
+    if count == 0:
+        return out
+    with torch.cuda.device(a.device):
+        rc = _inv_fn()(_FIELD_ID[spec.name], a.data_ptr(), out.data_ptr(),
+                       count, torch.cuda.current_stream().cuda_stream)
+    launches[f"inv.{spec.name}"] += 1
+    if rc != 0:
+        raise RuntimeError(f"ff kernel inv/{spec.name}: CUDA error {rc}")
+    return out

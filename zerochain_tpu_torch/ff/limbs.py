@@ -7,8 +7,8 @@ addresses.  All public ops keep canonical form (value in [0, p)) and work in
 the Montgomery domain unless named otherwise.
 
 Fq has 12 words (R = 2^384), Fr and Fs 8 (R = 2^256).  The four base ops
-(``mont_mul``, ``mont_sqr``, ``add``, ``sub``) are the kernels of
-``cuda_ff.py``; everything else here is composed of them.
+(``mont_mul``, ``mont_sqr``, ``add``, ``sub``) and the inverse are the
+kernels of ``cuda_ff.py``; everything else here is composed of them.
 """
 
 from __future__ import annotations
@@ -165,43 +165,17 @@ def pow_fixed(spec: FieldSpec, a, e: int):
 
 
 def inv_mont(spec: FieldSpec, a):
-    """Fermat inverse in the Montgomery domain (zero -> zero)."""
-    return pow_fixed(spec, a, spec.p - 2)
-
-
-def _scan_mul(spec, a, dim, reverse=False):
-    """Inclusive prefix (or suffix) products along ``dim`` at log depth."""
-    k = a.shape[dim]
-    if reverse:
-        a = a.flip(dim)
-    s = 1
-    while s < k:
-        head = a.narrow(dim, 0, s)
-        tail = mont_mul(spec, a.narrow(dim, s, k - s), a.narrow(dim, 0, k - s))
-        a = torch.cat([head, tail], dim=dim)
-        s *= 2
-    return a.flip(dim) if reverse else a
+    """Inverse in the Montgomery domain, elementwise (zero -> zero): one
+    ``cuda_ff.inv`` launch."""
+    return cuda_ff.inv(spec, a)
 
 
 def batch_inv_mont(spec: FieldSpec, a, axis=-1):
-    """Montgomery-trick batched inverse along a batch axis: one field
-    inverse plus O(k log k) multiplications,
-
-        a_i^{-1} = prefix_{i-1} * suffix_{i+1} * total^{-1}.
-
+    """Batched inverse (the JAX package's Montgomery trick along ``axis``).
+    Every element's inverse is independent of the others, so the axis only
+    names the batch: one ``cuda_ff.inv`` launch inverts the whole tensor.
     Zero entries yield zero."""
     if axis < 0:
         axis = a.dim() + axis
     assert axis != 0, "axis 0 is the word axis"
-    zmask = is_zero(a)
-    one = ones_mont(spec, a.shape[1:], a.device)
-    a_safe = torch.where(zmask[None], one, a)
-    k = a.shape[axis]
-    prefix = _scan_mul(spec, a_safe, axis)
-    suffix = _scan_mul(spec, a_safe, axis, reverse=True)
-    total_inv = inv_mont(spec, prefix.narrow(axis, k - 1, 1))
-    pad = one.narrow(axis, 0, 1)
-    before = torch.cat([pad, prefix.narrow(axis, 0, k - 1)], dim=axis)
-    after = torch.cat([suffix.narrow(axis, 1, k - 1), pad], dim=axis)
-    invs = mont_mul(spec, mont_mul(spec, before, after), total_inv)
-    return torch.where(zmask[None], torch.zeros_like(a), invs)
+    return cuda_ff.inv(spec, a)

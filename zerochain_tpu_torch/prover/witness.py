@@ -3,9 +3,10 @@
 The reference re-interprets the circuit per proof (bellman ConstraintSystem
 trait calls); here the circuit is fixed, so witness generation is straight
 tensor code: bit decompositions and window lookups are gathers, the
-scalar-mul chains run inversion-free in extended Edwards coordinates as
-Python loops over the field kernels, and affine gadget values are recovered
-with a handful of batched Montgomery inversions.  Aux values are emitted in
+scalar-mul chains run inversion-free in extended Edwards coordinates, each
+group of them in one chain-kernel launch (ec/cuda_jubjub.py), and affine
+gadget values are recovered with a handful of batched inversions, one
+``ff.inv`` launch each.  Aux values are emitted in
 EXACTLY the allocation order of models/confidential.py.
 
 Everything is batched over a trailing proof axis B.
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import _device
+from ..ec import cuda_jubjub
 from ..ec import jubjub as ej
 from ..ff import limbs as L
 from ..mirror import jubjub as mjj
@@ -89,11 +91,6 @@ def _affine_add_aux(x1, y1, x2, y2):
     return u, a, b, c
 
 
-def _ext_from_affine(x, y):
-    one = L.ones_mont(FR, x.shape[1:], x.device)
-    return (x, y, one, mul(x, y))
-
-
 class Emitter:
     """Collects aux blocks (8, k, B) in allocation order."""
 
@@ -157,13 +154,9 @@ def compute_fixed_base_chains(bits_list):
     lx = gather(tx)
     ly = gather(ty)
 
-    # chain of additions over windows (extended coords)
-    cur = _ext_from_affine(lx[:, 0], ly[:, 0])
-    results = []
-    for w in range(1, 84):
-        cur = ej.add(cur, _ext_from_affine(lx[:, w], ly[:, w]))
-        results.append(cur)
-    rx_all, ry_all = _normalize_stack(results)  # (8, 83, n_chains, B)
+    # chain of additions over windows (extended coords), one launch
+    rx_all, ry_all = _normalize_stack(
+        cuda_jubjub.fixed_chain(lx, ly))  # (8, 83, n_chains, B)
     return {
         "digits": digits,
         "lookup_x": lx,
@@ -173,12 +166,10 @@ def compute_fixed_base_chains(bits_list):
     }
 
 
-def _normalize_stack(ext_list):
-    """list of k extended points (8, ...) -> affine (8, k, ...), with one
-    batched inversion for all of them."""
-    X = torch.stack([e[0] for e in ext_list], dim=1)
-    Y = torch.stack([e[1] for e in ext_list], dim=1)
-    Z = torch.stack([e[2] for e in ext_list], dim=1)
+def _normalize_stack(xyz):
+    """X, Y, Z of k extended points, (3, 8, k, ...) -> affine (8, k, ...),
+    with one batched inversion for all of them."""
+    X, Y, Z = xyz
     zinv = L.batch_inv_mont(FR, Z.reshape(FR.n, -1), axis=1).reshape(Z.shape)
     return mul(X, zinv), mul(Y, zinv)
 
@@ -236,18 +227,7 @@ def compute_var_mul_chains(bases, bits):
 
     Returns dict of affine tensors for curbase doublings, selections, and
     addition results."""
-    cur = _ext_from_affine(*bases)
-    res = ej.identity(bits.shape[1:], bits.device)
-    ident = ej.identity(bits.shape[1:], bits.device)
-    curs, results = [], []
-    n = bits.shape[0]
-    for i in range(n):
-        sel = ej.select(bits[i].to(torch.bool), cur, ident)
-        res = ej.add(res, sel)  # identity + sel == sel projectively
-        curs.append(cur)
-        results.append(res)
-        if i + 1 < n:
-            cur = ej.double(cur)
+    curs, results = cuda_jubjub.var_chain(bases, bits)  # one launch
     cur_x, cur_y = _normalize_stack(curs)
     res_x, res_y = _normalize_stack(results)
     return {
@@ -308,7 +288,7 @@ def emit_add_gadget(em: Emitter, x1, y1, x2, y2):
     """Standalone EdwardsPoint::add: U, A, B, C, x3, y3 (affine math)."""
     u, a, b, c = _affine_add_aux(x1, y1, x2, y2)
     # x3 = (A+B)/(1+C), y3 = (U-A-B)/(1-C): done via extended add + normalize
-    ext = ej.add(_ext_from_affine(x1, y1), _ext_from_affine(x2, y2))
+    ext = ej.add(ej.ext_from_affine(x1, y1), ej.ext_from_affine(x2, y2))
     x3, y3 = ej.normalize(ext)
     em.emit(torch.stack([u, a, b, c, x3, y3], dim=1))
     return x3, y3
@@ -316,12 +296,12 @@ def emit_add_gadget(em: Emitter, x1, y1, x2, y2):
 
 def emit_not_small_order(em: Emitter, x, y):
     """3 doublings (5 aux each) + ephemeral inverse of the final x."""
-    cur = _ext_from_affine(x, y)
+    cur = ej.ext_from_affine(x, y)
     outs = []
     for _ in range(3):
         cur = ej.double(cur)
         outs.append(cur)
-    ax, ay = _normalize_stack(outs)  # (8, 3, B)
+    ax, ay = _normalize_stack(cuda_jubjub.stack_xyz(outs))  # (8, 3, B)
 
     in_x = torch.cat([x[:, None], ax[:, :2]], dim=1)
     in_y = torch.cat([y[:, None], ay[:, :2]], dim=1)

@@ -1,7 +1,7 @@
 """Time window_totals and the point chains of one checkout of the port.
 
     python3 zerochain_tpu_torch/tools/kernel_times.py [--root DIR] [--tag T]
-        [--prove] [--no-synthetic] [--no-chains]
+        [--prove] [--witness] [--no-synthetic] [--no-chains]
 
 Imports ``zerochain_tpu_torch`` and ``chip_smoke`` from DIR (default: the
 checkout this file is in), so that two checkouts can be timed in one call on
@@ -20,7 +20,14 @@ generates the ConfidentialTransfer CRS and prints JSON lines:
   a point, each checked word for word against its plain version;
 - with --prove: ``ConfidentialProver.prove`` of that batch, one warm call
   then three timed ones (host clock around a synchronize, stage times with
-  ``sync_stages``), and the proofs' equality across the three.
+  ``sync_stages``), and the proofs' equality across the three;
+- with --witness: the witness stage of that batch alone
+  (``confidential_witness`` on the card), one warm call then three timed
+  ones, each with its field-kernel (K1) launches by op and, where the
+  checkout has them, its Jubjub chain launches; and the field kernels'
+  time a launch at the witness stage's shapes, (8, 160), (8, 192) and
+  (8, 1) Fr elements: a back-to-back loop through the wrapper (eager_ms)
+  and inside a CUDA graph (ms).
 
 Needs a CUDA card; the first line is the card's name and power limit.
 """
@@ -39,6 +46,7 @@ def main() -> int:
     ap.add_argument("--root", default=str(pathlib.Path(__file__).resolve().parents[2]))
     ap.add_argument("--tag", default="")
     ap.add_argument("--prove", action="store_true")
+    ap.add_argument("--witness", action="store_true")
     ap.add_argument("--no-synthetic", action="store_true")
     ap.add_argument("--no-chains", action="store_true")
     args = ap.parse_args()
@@ -101,6 +109,40 @@ def main() -> int:
                      F, chunk, sd, od, msm.nb), 3))
 
     assignments = chip_smoke.assignments_for(32, False)
+    if args.witness:
+        import time
+
+        from zerochain_tpu_torch.ff import cuda_ff
+        try:
+            from zerochain_tpu_torch.ec import cuda_jubjub
+        except ImportError:  # a checkout from before the chain kernels
+            cuda_jubjub = None
+        inputs_host, witness_fn = prover._witness_fns()
+        first = witness_fn(**inputs_host(assignments, prover.device))
+        for _ in range(3):
+            cuda_ff.reset_launches()
+            if cuda_jubjub is not None:
+                cuda_jubjub.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = witness_fn(**inputs_host(assignments, prover.device))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            by_op = {k: v for k, v in cuda_ff.launches.items() if v}
+            emit(kernel="witness", seconds=secs, k1_launches=sum(by_op.values()),
+                 k1_by_op=by_op, jubjub_launches=(
+                     dict(cuda_jubjub.launches) if cuda_jubjub else None),
+                 same_witness=all(torch.equal(a, b) for a, b in zip(out, first)))
+        for n in (160, 192, 1):
+            a, b = (chip_smoke.random_elements(L.FR, (n + 3,), gen)[:, 3:].contiguous()
+                    for _ in range(2))
+            for op in ("mont_mul", "add", "sub"):
+                run = lambda: getattr(cuda_ff, op)(L.FR, a, b)  # noqa: E731
+                ops = 2 * 8 * 8 + 8 if op == "mont_mul" else 2 * 8
+                bnd, by = chip_smoke.bound_ms(3 * 8 * 4 * n, ops * n)
+                emit(kernel=f"ff.{op}.Fr", shape=[8, n],
+                     eager_ms=chip_smoke.time_ms(run, 200),
+                     ms=chip_smoke.graph_ms(run), bound_ms=bnd, bound_by=by)
     if args.prove:
         import time
 
