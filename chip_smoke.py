@@ -15,24 +15,29 @@ run exits non-zero (there is no CPU fallback):
            path's for the first and the last proof
   kernels  every kernel wrapper against its plain PyTorch version on the card,
            on CRS points and random field elements at the main path's shapes
-           (the chain kernels, ladder and Horner, also in their one-lane form;
-           window_totals also on the digits of the batch the prove phase
-           proves; the field inverse and the Jubjub chains at the witness
-           stage's shapes, the chains also against their former loop of
-           field-kernel launches)
+           (the chain kernels, ladder, Horner and the bucket fold, also in
+           their one-lane form; window_totals and bucket_sums also on the
+           digits of the batch the prove phases prove; the field inverse and
+           the Jubjub chains at the witness stage's shapes, the chains also
+           against their former loop of field-kernel launches)
   prove    one batch of 32 proofs (warm run, then a timed run with the launch
            counters zeroed just before and read just after)
-  prove_hs     the same batch through the bucket MSM (msm_impl="hs", whose
-               Hillis-Steele levels are the hs_add_select kernel), on the
-               same CRS; its proofs must equal prove's
+  prove_hs     the same batch through the bucket MSM (msm_impl="hs": per
+               chunk one bucket_sums and one bucket_fold launch for all
+               windows), on the same CRS; its proofs must equal prove's, and
+               its timed run must launch no hs_add_select, call no
+               torch.roll and launch bucket_sums and bucket_fold for every
+               MSM chunk
   prove_split  the same through the suffix MSM's split tail
                (msm_tail="split", the column_scan kernel); the same check
   backend  groth16.core.generate_parameters and create_proof through
            TorchBackend on the card: the same verifying key as the CRS phase,
-           and create_proof on assignment 0 equal to prove's proof 0
-  profile  only with --profile, after each of prove, prove_hs and
-           prove_split: one more batch of that path under torch.profiler
-           (the card's idle share, device time by kernel)
+           and create_proof on assignment 0 equal to prove's proof 0; the
+           create_proof seconds split into the backend's calls (each ended
+           by a synchronize) and the host's rest
+  profile  only with --profile, after each of prove, prove_hs, prove_split
+           and create_proof: one more run of it under torch.profiler (the
+           card's idle share; device time by kernel for the prove paths)
   verify   the host pairing verifier accepts sampled proofs of every path and
            rejects a tampered public input
 
@@ -44,11 +49,14 @@ A field or point kernel's "ms" is its time per launch inside a CUDA graph of
 back-to-back loop through the wrapper, which the host's launch cost bounds.
 
 All comparisons are exact (tolerance 0): field kernels and the inverse,
-point add/double, the ladder, the Horner combine, the Jubjub chains,
-hs_add_select and column_scan on identical words, window_totals after
-normalisation to affine coordinates.  Each kernel's launches are counted in
-the timed run of the path that uses it: prove for K1-K3, the inverse and the
-Jubjub chains, prove_hs for hs_add_select, prove_split for column_scan.
+point add/double, the ladder, the Horner combine, the bucket fold, the
+Jubjub chains, hs_add_select and column_scan on identical words,
+window_totals and bucket_sums (which add in another order than their plain
+versions) after normalisation to affine coordinates.  Each kernel's
+launches are counted in the timed run of the path that uses it: prove for
+K1-K3, the inverse and the Jubjub chains, prove_hs for bucket_sums and the
+bucket fold, prove_split for column_scan; hs_add_select is checked but on no
+path.
 """
 
 from __future__ import annotations
@@ -325,6 +333,7 @@ def phase_kernels(prover, B, gen, assignments):
     # batch the prove phase proves (B1 and B2 share theirs)
     entries += real_totals_entries(prover, assignments)
 
+    entries += bucket_entries(prover, B, gen, assignments)
     entries += hs_entries(prover, B, gen)
     entries += column_scan_entries(prover, B, gen)
     return entries
@@ -481,8 +490,10 @@ def witness_entries(prover, B, gen, assignments):
             bound_ms=bnd, bound_by=by, library_ms=None))
 
     # variable-base chains: the batch's own Jubjub points as bases (those of
-    # the ConfidentialTransfer batch under --mini)
-    if "pgk" not in assignments[0]:
+    # the ConfidentialTransfer batch under --mini, whose MiniCommit witness
+    # runs no variable-base chain)
+    mini = "pgk" not in assignments[0]
+    if mini:
         assignments = assignments_for(B, False)
     ins = wit.witness_inputs_host(assignments, "cuda")
     pts = [ins[k] for k in ("ekr", "ebl", "ebr", "pgk", "gep")]
@@ -501,6 +512,7 @@ def witness_entries(prover, B, gen, assignments):
         lambda: cuda_jubjub.var_chain_plain(bases, bits, ej.KERNEL_OPS),
         n_bytes=2 * 8 * 4 * lanes + n_bits * lanes + 2 * 3 * 8 * 4 * n_bits * lanes,
         serial=var_muls, lanes=lanes))
+    out[-1]["off_path"] = mini
 
     # fixed-base chains: window points of the table, digit 0 on one chain
     n_win, nc = 84, 6
@@ -655,9 +667,10 @@ def _set_at(dst, idx, src):
 
 
 def hs_entries(prover, B, gen):
-    """P3 at the 'hs' path's shape: one Hillis-Steele level over a window
-    group x B x one chunk of partial sums (arbitrary Z), with P = Q, P = -Q
-    and identities planted behind the level's distance s."""
+    """P3's port as an op, off every path since the bucket MSM runs
+    bucket_sums: one Hillis-Steele level over 4 windows x B x one chunk of
+    partial sums (arbitrary Z), with P = Q, P = -Q and identities planted
+    behind the level's distance s."""
     from zerochain_tpu_torch.ec import cuda_ec
     from zerochain_tpu_torch.ec import weierstrass as W
     from zerochain_tpu_torch.ec.fields import FqOps, Fq2Ops
@@ -667,7 +680,7 @@ def hs_entries(prover, B, gen):
     for F, chunk, tag in ((FqOps, prover.h_chunks[0], "g1"),
                           (Fq2Ops, prover.b2_chunks[0], "g2")):
         N = pip.first_leaf(chunk).shape[-1]
-        wg = pip.Msm(F).window_group
+        wg = 4  # the JAX Msm's default window group
         shape = (wg, B, N)
 
         def pick():
@@ -709,10 +722,157 @@ def hs_entries(prover, B, gen):
             name=f"ec.hs_add_select.{tag}", route="cuda",
             source="zerochain_tpu_torch/csrc/hs_kernel.cu",
             replaces=TPU_HS, counter=("ec", f"{tag}_hs_add_select"),
-            path="prove_hs", shape=[12, *shape], n_add=n_add,
+            path="prove_hs", off_path=True, shape=[12, *shape], n_add=n_add,
             equal=err == 0, max_abs_err=err,
             ms=time_ms(lambda: cuda_ec.hs_add_select(F, xl, x, f, keep), 3),
             plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=None))
+    return out
+
+
+def bucket_sums_entry(F, pairs, nb, tag, check_rows, B):
+    """bucket_sums over (chunk, (keys, order)) pairs, held against
+    bucket_sums_plain after normalisation on the rows check_rows of every
+    pair and on the pair's row that holds its heaviest bucket (the plain
+    version's Hillis-Steele temporaries take seconds a chunk); ms is the sum
+    of one launch per pair over all rows.  The bound counts one full add per
+    non-zero digit that is not the first of its bucket; heaviest_bucket is
+    the largest bucket of any row and where it lies (pair, window, proof,
+    digit)."""
+    from zerochain_tpu_torch.ec import cuda_ec
+    from zerochain_tpu_torch.ec import weierstrass as W
+    from zerochain_tpu_torch.msm import pippenger as pip
+
+    err, plain_ms, ms = 0.0, 0.0, 0.0
+    nonzero = n_add = n_bytes = rows_checked = 0
+    heaviest = (0, None)
+    for k, (chunk, (ks, od)) in enumerate(pairs):
+        N = pip.first_leaf(chunk).shape[-1]
+        M = ks.shape[0]
+        cnt = torch.zeros((M, nb), dtype=torch.int64, device=ks.device)
+        cnt.scatter_add_(1, ks.to(torch.int64), torch.ones_like(ks, dtype=torch.int64))
+        c1 = cnt[:, 1:]
+        nonzero += int(c1.sum())
+        n_add += int(c1.sum() - (c1 > 0).sum())
+        top = int(c1.max())
+        row, v = divmod(int(c1.argmax()), nb - 1)
+        if top > heaviest[0]:
+            heaviest = (top, dict(pair=k, window=row // B, proof=row % B,
+                                  digit=v + 1))
+        rows = torch.unique(torch.cat([check_rows, check_rows.new_tensor([row])]))
+        rows_checked += rows.numel()
+        got = cuda_ec.bucket_sums(F, chunk, ks, od, nb)
+        want, p_ms = timed(lambda: cuda_ec.bucket_sums_plain(
+            F, chunk, ks[rows], od[rows], nb))
+        got = pip.tmap(lambda t: t[:, rows], got)
+        gx, gy, ginf = W.normalize(F, got)
+        wx, wy, winf = W.normalize(F, want)
+        err = max(err, max_abs_err(leaves_of((gx, gy)) + [ginf],
+                                   leaves_of((wx, wy)) + [winf]))
+        plain_ms += p_ms
+        ms += time_ms(lambda: cuda_ec.bucket_sums(F, chunk, ks, od, nb), 3)
+        words = 3 * F.ncomp * 12
+        n_bytes += words * 4 * N + 2 * 4 * M * N + words * 4 * M * nb
+    bnd, by = bound_ms(n_bytes, n_add * group_op_ops(F.ncomp, "add"))
+    ks0 = pairs[0][1][0]
+    return dict(
+        name=f"msm.bucket_sums.{tag}", route="cuda",
+        source="zerochain_tpu_torch/csrc/hs_kernel.cu", replaces=TPU_HS,
+        counter=("ec", f"{tag[:2]}_bucket_sums"), path="prove_hs",
+        shape=[len(pairs), list(ks0.shape), nb], equal=err == 0,
+        max_abs_err=err, nonzero_digits=nonzero, n_add=n_add,
+        heaviest_bucket=heaviest[0], heaviest_at=heaviest[1],
+        rows_checked=rows_checked, ms=ms, plain_ms=plain_ms,
+        bound_ms=bnd, bound_by=by, library_ms=None)
+
+
+def bucket_entries(prover, B, gen, assignments):
+    """The bucket MSM's kernels at the 'hs' path's shapes (all 32 windows x
+    B rows of a chunk in one launch).  bucket_sums on the batch's real
+    digits (every chunk of A, B1, L, H and B2, checked on the rows of proofs
+    0 and B - 1) and on planted rows over partial sums (any Z): a heavy
+    bucket (60 % of row 0 in digit 1), an all-zero row, a row of one key,
+    and a run A, A, -2A, identity (P = Q, then P = -Q); checked on the first
+    8 rows.  Each entry also checks the row of each chunk's heaviest bucket.  bucket_fold on the planted buckets, with P = Q, P = -Q and an
+    empty bucket planted at its first two steps, word for word against its
+    plain version (its staged formulas give add_plain's words), also in its
+    one-lane form."""
+    from zerochain_tpu_torch.ec import cuda_ec
+    from zerochain_tpu_torch.ec import weierstrass as W
+    from zerochain_tpu_torch.ec.fields import FqOps, Fq2Ops
+    from zerochain_tpu_torch.msm import pippenger as pip
+
+    msm = pip.Msm(FqOps)  # the hs path's: c = 8, 32 windows
+    nw, nb = msm.n_windows, 1 << msm.c
+    dev = prover.device
+    inputs_host, witness_fn = prover._witness_fns()
+    aux, public = witness_fn(**inputs_host(assignments, prover.device))
+    a_b, b1_b, b2_b, l_b, h_b = prover._bits(*prover._quotient(aux, public))
+    check = torch.tensor([w * B + b for w in range(nw) for b in (0, B - 1)],
+                         device=dev)
+
+    def pairs(chunks, bits):
+        out, off = [], 0
+        for ch in chunks:
+            n = pip.first_leaf(ch).shape[-1]
+            out.append((ch, msm.rows(bits[:, off: off + n])))
+            off += n
+        return out
+
+    out = [bucket_sums_entry(
+        FqOps, pairs(prover.a_chunks, a_b) + pairs(prover.b1_chunks, b1_b)
+        + pairs(prover.l_chunks, l_b) + pairs(prover.h_chunks, h_b),
+        nb, "g1.real", check, B)]
+    out.append(bucket_sums_entry(Fq2Ops, pairs(prover.b2_chunks, b2_b), nb,
+                                 "g2.real", check, B))
+    del aux, public, a_b, b1_b, b2_b, l_b, h_b
+
+    for F, chunk, tag in ((FqOps, prover.h_chunks[0], "g1"),
+                          (Fq2Ops, prover.b2_chunks[0], "g2")):
+        N = pip.first_leaf(chunk).shape[-1]
+
+        def pick():
+            i = torch.randint(0, N, (N,), generator=gen, device=dev)
+            return pip.tmap(lambda t: t.index_select(1, i), chunk)
+
+        pts = W.add(F, pick(), pick())  # partial sums; zero padding included
+        a = pip.tmap(lambda t: t[:, :1].clone(), pts)
+        neg2a = W.neg(F, W.double(F, a))
+        ident = W.identity(F, (1,), dev)
+        for t, x, y, z in zip(leaves_of(pts), leaves_of(a), leaves_of(neg2a),
+                              leaves_of(ident)):
+            t[:, 1], t[:, 2], t[:, 3] = x[:, 0], y[:, 0], z[:, 0]
+        M = nw * B
+        keys = torch.randint(0, nb, (M, N), generator=gen, device=dev,
+                             dtype=torch.int32)
+        heavy = torch.randperm(N, generator=gen, device=dev)[: N * 3 // 5]
+        keys[0, heavy] = 1                                    # heavy bucket
+        keys[1] = 0                                           # all zero
+        keys[2] = nb - 56                                     # one key
+        keys[3][keys[3] == 77] = 78
+        keys[3, :4] = 77                                      # A, A, -2A, inf
+        ks, od = torch.sort(keys, dim=-1, stable=True)
+        od = od.to(torch.int32)
+        rows8 = torch.arange(8, device=dev)
+        out.append(bucket_sums_entry(F, [(pts, (ks, od))], nb,
+                                     f"{tag}.planted", rows8, B))
+
+        bk = cuda_ec.bucket_sums(F, pts, ks, od, nb)
+        top = pip.tmap(lambda t: t[:, :, nb - 1], bk)
+        neg_top = W.neg(F, top)
+        for t, x, y in zip(leaves_of(bk), leaves_of(top), leaves_of(neg_top)):
+            t[:, 4, nb - 2] = x[:, 4]                         # P = Q
+            t[:, 5, nb - 2] = y[:, 5]                         # P = -Q
+        for t in leaves_of(bk)[-F.ncomp:]:
+            t[:, 6, nb - 2] = 0                               # an empty bucket
+        words = 3 * F.ncomp * 12
+        e = chain_entry(
+            F, f"ec.bucket_fold.{tag}", f"{tag}_bucket_fold", [12, M, nb],
+            lambda lanes=None: cuda_ec.bucket_fold(F, bk, lanes=lanes),
+            lambda: cuda_ec.bucket_fold_plain(F, bk),
+            n_bytes=words * 4 * M * (nb + 1),
+            n_ops=M * 2 * (nb - 1) * group_op_ops(F.ncomp, "add"))
+        e["path"] = "prove_hs"
+        out.append(e)
     return out
 
 
@@ -795,6 +955,59 @@ def phase_profile(prover, assignments, rs, timed_seconds, path):
          device_idle_share=1.0 - busy_us / 1e6 / timed_seconds,
          kernels=[dict(name=k[:80], count=c, total_ms=t / 1e3,
                        mean_us=t / c) for k, c, t in rows[:24]])
+
+
+def check_bucket_launches(prover, counts, rolls):
+    """The timed prove_hs ran the bucket kernels: no hs_add_select and no
+    torch.roll, at least one bucket_sums and one bucket_fold a chunk."""
+    chunks = {"g1": sum(len(c) for c in (prover.a_chunks, prover.b1_chunks,
+                                         prover.l_chunks, prover.h_chunks)),
+              "g2": len(prover.b2_chunks)}
+    hs = counts["ec"]["g1_hs_add_select"] + counts["ec"]["g2_hs_add_select"]
+    if hs or rolls:
+        raise SystemExit(f"prove_hs: {hs} hs_add_select launches, {rolls} "
+                         "torch.roll calls; expected none")
+    for g, n in chunks.items():
+        got = (counts["ec"][f"{g}_bucket_sums"], counts["ec"][f"{g}_bucket_fold"])
+        if min(got) < n:
+            raise SystemExit(f"prove_hs: {g} bucket_sums/bucket_fold launches "
+                             f"{got} for {n} MSM chunks")
+
+
+def timed_backend(backend):
+    """Wrap the backend's entry points that create_proof calls so that their
+    seconds (each call ended by a synchronize) add up by name in the
+    returned dict."""
+    spent = {}
+    for name in ("msm_g1", "msm_g2", "compute_h"):
+        fn = getattr(backend, name)
+
+        def wrapped(*a, _fn=fn, _name=name, **kw):
+            t0 = time.time()
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[_name] = spent.get(_name, 0.0) + time.time() - t0
+            return out
+
+        setattr(backend, name, wrapped)
+    return spent
+
+
+def profile_create_proof(create_proof, circuit, params, r_s, backend,
+                         timed_seconds):
+    """One more create_proof under torch.profiler: the card's busy time and
+    its idle share of the timed (unprofiled) create_proof."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        create_proof(circuit, params, *r_s, backend=backend)
+        torch.cuda.synchronize()
+    busy_us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                  if ev.device_type == DeviceType.CUDA)
+    emit("profile", path="create_proof", device_busy_seconds=busy_us / 1e6,
+         timed_seconds=timed_seconds,
+         device_idle_share=1.0 - busy_us / 1e6 / timed_seconds)
 
 
 def ints_of(proofs):
@@ -916,9 +1129,12 @@ def main() -> int:
     counters = {"ff": cuda_ff.launches, "ec": cuda_ec.launches,
                 "scan": cuda_scan.launches, "jj": cuda_jubjub.launches}
 
+    real_roll = torch.roll
+
     def drive(p, phase):
         """One warm prove, then a timed one with every launch counter
-        zeroed just before and read just after."""
+        zeroed just before and read just after, and torch.roll's calls
+        counted (the Hillis-Steele levels' rolled copies)."""
         p.sync_stages = True
         t0 = time.time()
         p.prove(assignments, rs=rs)
@@ -926,21 +1142,34 @@ def main() -> int:
         warm_s = time.time() - t0
         for mod in (cuda_ff, cuda_ec, cuda_scan, cuda_jubjub):
             mod.reset_launches()
+        rolls = [0]
+
+        def counted_roll(*a, **kw):
+            rolls[0] += 1
+            return real_roll(*a, **kw)
+
         torch.cuda.synchronize()
-        t0 = time.time()
-        out = p.prove(assignments, rs=rs)
-        torch.cuda.synchronize()
-        secs = time.time() - t0
+        torch.roll = counted_roll
+        try:
+            t0 = time.time()
+            out = p.prove(assignments, rs=rs)
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+        finally:
+            torch.roll = real_roll
         counts = {k: dict(v) for k, v in counters.items()}
+        bucket = {k: n for k, n in counts["ec"].items()
+                  if "bucket" in k or "hs_" in k}
         emit(phase, batch=B, warm_seconds=warm_s, seconds=secs,
              proofs_per_second=B / secs, stages=p.last_timings,
              launches=counts, total_launches=sum(
                  n for c in counts.values() for n in c.values()),
-             point_op_launches=sum(  # K2: add, double, ladder, Horner
-                 n for k, n in counts["ec"].items() if "hs_" not in k))
-        return out, secs, counts
+             point_op_launches=sum(  # add, double, ladder, Horner, fold, bucket sums
+                 n for k, n in counts["ec"].items() if "hs_" not in k),
+             bucket_msm_launches=bucket, torch_roll_calls=rolls[0])
+        return out, secs, counts, rolls[0]
 
-    proofs, prove_s, counts = drive(prover, "prove")
+    proofs, prove_s, counts, _ = drive(prover, "prove")
     path_counts = {"prove": counts}
     if args.profile:
         phase_profile(prover, assignments, rs, prove_s, "prove")
@@ -952,7 +1181,9 @@ def main() -> int:
                         ("prove_split", dict(msm_tail="split"))):
         other = cls(None, _device_queries=prover._raw_queries, _vk=prover.vk,
                     **opts)
-        path_proofs[phase], secs, path_counts[phase] = drive(other, phase)
+        path_proofs[phase], secs, path_counts[phase], rolls = drive(other, phase)
+        if phase == "prove_hs":
+            check_bucket_launches(prover, path_counts[phase], rolls)
         if args.profile:
             phase_profile(other, assignments, rs, secs, phase)
         del other
@@ -970,6 +1201,7 @@ def main() -> int:
         raise SystemExit("backend: generate_parameters gave another verifying key")
     for mod in (cuda_ff, cuda_ec, cuda_scan, cuda_jubjub):
         mod.reset_launches()
+    in_backend = timed_backend(backend)
     t0 = time.time()
     backend_proof = create_proof(prover.circuit_for(assignments[0]), params,
                                  *rs[0], backend=backend)
@@ -978,10 +1210,15 @@ def main() -> int:
     counts = {k: dict(v) for k, v in counters.items()}
     if ints_of([backend_proof]) != ints_of(proofs[:1]):
         raise SystemExit("backend: create_proof differs from prove's proof 0")
-    del params
     emit("backend", generate_parameters_seconds=gen_s,
          create_proof_seconds=proof_s, vk_equal=True, proof_equal=True,
+         create_proof_backend_seconds=in_backend,
+         create_proof_host_seconds=proof_s - sum(in_backend.values()),
          launches=counts)
+    if args.profile:
+        profile_create_proof(create_proof, prover.circuit_for(assignments[0]),
+                             params, rs[0], backend, proof_s)
+    del params
 
     for e in entries:
         grp, key = e.pop("counter")
@@ -1018,13 +1255,15 @@ def main() -> int:
             "shape")
     # eager_ms: see the module docstring; one_lane_ms: a chain kernel with one
     # lane a point; nonzero_digits, row_nonzero_q, n_add: what a
-    # data-dependent bound was computed from; path: the run whose launches
-    # are counted
+    # data-dependent bound was computed from; heaviest_bucket, heaviest_at:
+    # the largest bucket of the bucket sums' rows; path: the run whose
+    # launches are counted; off_path: checked, on no path's main run
     # serial_mul, us_per_mul: a serial chain's multiplies a thread and its
     # time over them; k1_loop_ms: a Jubjub chain as its former loop of
     # field-kernel launches
     extras = ("eager_ms", "one_lane_ms", "nonzero_digits", "row_nonzero_q",
-              "n_add", "path", "serial_mul", "us_per_mul", "k1_loop_ms")
+              "n_add", "heaviest_bucket", "heaviest_at", "path", "off_path",
+              "serial_mul", "us_per_mul", "k1_loop_ms")
     print(json.dumps({"kernels": [
         {**{k: e[k] for k in keys}, **{k: e[k] for k in extras if k in e}}
         for e in entries]}), flush=True)

@@ -7,9 +7,8 @@ MiniCommit fixture.
   ``MiniProver`` proof on those parameters, integer for integer.
 
 ``create_proof`` runs five bucket MSMs (``msm.pippenger.Msm``), whose
-bucket fold is 510 sequential point adds per window group; the CPU runs them
-at the speed of tiny tensor operations, so this file runs them with all
-windows in one group (``ZEROCHAIN_MSM_WG=32``)."""
+bucket fold is 510 sequential point adds, all windows side by side; the CPU
+runs them at the speed of tiny tensor operations."""
 
 import pytest
 import torch
@@ -50,7 +49,6 @@ def test_generate_parameters_matches_the_mirror(params):
 def test_create_proof_matches_the_mirror_and_the_prover(monkeypatch, params):
     from zerochain_tpu_torch.prover import MiniProver
 
-    monkeypatch.setenv("ZEROCHAIN_MSM_WG", "32")
     monkeypatch.setenv("ZEROCHAIN_MSM_CHUNK", "256")
     backend, p = params
     prover = MiniProver(p, device="cpu")

@@ -8,8 +8,10 @@ and feeds it the same inputs as the plain versions: field ops and point
 add/double/mixed-add word for word, ``window_totals`` (each row's threads
 stepped through in order and summed as the kernel sums them) after
 ``normalize``, ``column_scan`` (every lane stepped through) word for word,
-the chain programs of ``group_program.cuh`` (the ladder and the Horner
-combine, one lane a group) word for word, and the witness stage's kernels
+the bucket sums of ``hs_kernel.cu`` (each row's threads stepped through
+phase by phase: fill, slices, merge of the slices' edge pieces) after
+``normalize``, the chain programs of ``group_program.cuh`` (the ladder, the
+Horner combine and the bucket fold, one lane a group) word for word, and the witness stage's kernels
 word for word: the Fermat inverse of ``ff_kernels.cu``, the Edwards add and
 double of ``edwards.cuh`` and the per-lane Jubjub chains of
 ``jubjub_kernels.cu``.  All comparisons are exact
@@ -392,3 +394,83 @@ def test_jubjub_fixed_chain_lanes(host_bin):
     want = cuda_jubjub.fixed_chain_plain(lx, ly)
     (got,) = _run(host_bin, f"jfix {nw} {nc * B}\n{_hex(lx)}\n{_hex(ly)}\n")
     assert torch.equal(_words_of(got, want.shape), want)
+
+
+def _bucket_rows(rng, N, nb):
+    """Sorted digit rows for the bucket sums: uniform, all zero, one key,
+    a heavy bucket (more than half the row in bucket 1), and runs laid on
+    the slices of T = 4 and 8 (16 zeros, then runs of 12, 12, 6, 12, 6:
+    exactly one or two slices, starting at a slice's first position or
+    crossing a slice's end)."""
+    assert N == 64
+    rows = [sorted(rng.randint(0, nb, N).tolist()),
+            [0] * N,
+            [5] * N,
+            sorted([1] * 40 + rng.randint(0, nb, N - 40).tolist()),
+            [0] * 16 + [2] * 12 + [3] * 12 + [4] * 6 + [6] * 12 + [9] * 6]
+    return torch.tensor(rows, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("T", [1, 3, 4, 8, 128])
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_bucket_sums_threads(host_bin, name, T):
+    """zc_hs_bucket_sums stepped through with T threads a row (slices of 64
+    down to 1 digit, and more threads than digits), on points with Z != 1,
+    against bucket_sums_plain after normalisation.  Inside runs: P = Q
+    (one point twice), P = -Q and identity points, also at a run's head
+    where a slice's edge piece is the identity."""
+    N, nb = 64, 16
+    rng = np.random.RandomState(89)
+    tg, neg, pts, _ = _jac_points(name, rng, N)
+    pts[3] = None
+    pts[20] = neg(pts[21])
+    P = tg.double(tg.from_affine_host(pts, device="cpu"))   # Z != 1
+    keys = _bucket_rows(rng, N, nb)
+    M = keys.shape[0]
+    order = torch.stack([torch.from_numpy(rng.permutation(N)) for _ in range(M)]).to(torch.int32)
+    # row 4, run of 3s at 28..39: P = Q at its head, then P = -Q, then an
+    # identity; row 3's heavy bucket: P = -Q at its head (the identity)
+    order[4, 28:33] = torch.tensor([7, 7, 20, 21, 3], dtype=torch.int32)
+    head = int((keys[3] == 1).nonzero()[0])
+    order[3, head: head + 2] = torch.tensor([20, 21], dtype=torch.int32)
+    order[0, 10:12] = order[0, 9]
+    want = cuda_ec.bucket_sums_plain(tg.F, P, keys, order, nb)
+    text = f"bs {int(name == 'g2')} {N} {M} {nb} {T}\n"
+    text += "\n".join(_hex(pl) for pl in cuda_ec._planes(tg.F, P)) + "\n"
+    text += " ".join(map(str, keys.reshape(-1).tolist())) + "\n"
+    text += " ".join(map(str, order.reshape(-1).tolist())) + "\n"
+    got = _outs(name, _run(host_bin, text), (M, nb))
+    assert tg.to_affine_host(got) == tg.to_affine_host(want)
+    assert all(p is None for p in tg.to_affine_host(tuple(
+        tg.F.map(lambda a: a[:, :, 0], c) for c in got)))
+
+
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_chain_fold_one_lane(host_bin, name):
+    """The bucket fold on one lane a row, nb = 8: general buckets (Z != 1),
+    a bucket equal to the running sum (the first add doubles), its negative
+    (the running sum becomes the identity), an empty bucket after the top
+    one (the second add doubles), an all-identity row; the words of
+    bucket_fold_plain."""
+    nb, count = 8, 5
+    rng = np.random.RandomState(97)
+    tg, neg, pts, jac = _jac_points(name, rng, nb * count)
+    F = tg.F
+    bk = tuple(tuple(x.reshape(12, count, nb) for x in co) if isinstance(co, tuple)
+               else co.reshape(12, count, nb) for co in jac)
+    for co in bk:
+        for leaf in F.leaves(co):
+            leaf[:, 0, nb - 2] = leaf[:, 0, nb - 1]       # row 0: P = Q
+            leaf[:, 1, nb - 2] = leaf[:, 1, nb - 1]
+    ny = F.plain.neg(bk[1])                               # row 1: P = -Q
+    for leaf, nl in zip(F.leaves(bk[1]), F.leaves(ny)):
+        leaf[:, 1, nb - 2] = nl[:, 1, nb - 2]
+    for leaf in F.leaves(bk[2]):
+        leaf[:, 2, nb - 2] = 0                            # row 2: empty bucket
+        leaf[:, 3, :] = 0                                 # row 3: all empty
+    want = cuda_ec.bucket_fold_plain(F, bk)
+    text = f"fold {int(name == 'g2')} {nb} {count}\n"
+    text += "\n".join(_hex(pl) for pl in cuda_ec._planes(F, bk)) + "\n"
+    got = _run(host_bin, text)
+    assert got == [_hex(pl).split() for pl in cuda_ec._planes(F, want)]
+    assert tg.to_affine_host(want)[3] is None

@@ -8,16 +8,15 @@ bigint mirror.
   (through ``convert``), with doublings, opposite points, identities and the
   wrapped roll among the inputs: exact on words.
 - ``Msm``: against the mirror's sum of scalar multiples, after ``normalize``
-  (exact), with the four windows in two groups and in one.  The JAX ``Msm`` itself is held against the
+  (exact), with 4-bit windows and with 3-bit ones (a top window of 1 bit).  The JAX ``Msm`` itself is held against the
   port in test_torch_hs_msm_jax.py (its XLA compile takes over a minute).
 - ``msm_g1`` / ``msm_g2``: the host entry points against the mirror at
   N = 10 (double-and-add; oracle ``g1_msm`` / ``g2_msm``) and N = 100
   (``Msm``; oracle the mirror's bucket MSM ``g1_msm_fast`` / ``g2_msm_fast``,
   itself held against ``g1_msm`` at N = 10 here).
 
-The fold over 255 buckets is 510 sequential point adds per window group;
-the CPU runs them at the speed of tiny tensor operations, so the host MSMs
-run with all windows in one group (``ZEROCHAIN_MSM_WG=32``)."""
+The fold over 255 buckets is 510 sequential point adds, all windows side by
+side; the CPU runs them at the speed of tiny tensor operations."""
 
 import numpy as np
 import pytest
@@ -140,10 +139,10 @@ def case(request):
                 bits=bits, want=want)
 
 
-@pytest.mark.parametrize("window_group", [3, 4])
-def test_msm_matches_the_mirror(case, window_group):
-    msm = pip.Msm(case["F"], c=4, n_bits=16, window_group=window_group)
-    assert msm.n_windows == 4
+@pytest.mark.parametrize("c", [3, 4])
+def test_msm_matches_the_mirror(case, c):
+    msm = pip.Msm(case["F"], c=c, n_bits=16)
+    assert msm.n_windows == -(-16 // c)
     got = case["tg"].to_affine_host(msm(case["tp"], case["bits"]))
     assert got == case["want"]
 
@@ -187,6 +186,5 @@ def check_host_msm(name, n):
 
 # G2 at N = 10 runs in test_torch_hs_msm_jax.py, to keep each file short
 @pytest.mark.parametrize("name, n", [("g1", 10), ("g1", 100), ("g2", 100)])
-def test_host_msm(monkeypatch, name, n):
-    monkeypatch.setenv("ZEROCHAIN_MSM_WG", "32")
+def test_host_msm(name, n):
     check_host_msm(name, n)

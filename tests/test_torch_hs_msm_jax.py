@@ -46,7 +46,7 @@ def test_msm_matches_the_jax_msm():
     scal[1][:8] = [0] * 8
     bits = torch.stack([pip.scalars_to_bits(s, 16, "cpu") for s in scal], -1)
 
-    msm = pip.Msm(FqOps, c=4, n_bits=16, window_group=3)
+    msm = pip.Msm(FqOps, c=4, n_bits=16)
     got = msm(tg1.from_affine_host(pts, device="cpu"), bits)
     jmsm = jpip.Msm(JFq, c=4, n_bits=16, window_group=3, mode="hs")
     want = jmsm(jg1.from_affine_host(pts), jnp.asarray(bits.numpy()))
@@ -64,8 +64,7 @@ def test_msm_matches_the_jax_msm():
     assert tg1.to_affine_host(got) == mirror
 
 
-def test_host_msm_g2_double_and_add(monkeypatch):
+def test_host_msm_g2_double_and_add():
     from test_torch_hs_msm import check_host_msm
 
-    monkeypatch.setenv("ZEROCHAIN_MSM_WG", "32")
     check_host_msm("g2", 10)

@@ -6,9 +6,8 @@ bigint prover ``groth16.core.create_proof``, which is the default
 integer for integer, and the verifier accepts it.  The msm options follow
 ``ZEROCHAIN_MSM_IMPL`` and ``ZEROCHAIN_MSM_TOTALS`` as in the JAX package.
 
-The bucket fold is 510 sequential point adds per window group; the CPU runs
-them at the speed of tiny tensor operations, so this file runs them with all
-windows in one group (``ZEROCHAIN_MSM_WG=32``)."""
+The bucket fold is 510 sequential point adds, all windows side by side;
+the CPU runs them at the speed of tiny tensor operations."""
 
 import pytest
 import torch
@@ -33,10 +32,9 @@ def test_mini_prover_hs_gives_the_bigint_proof(monkeypatch, params):
     from zerochain_tpu_torch.msm import pippenger as pip
     from zerochain_tpu_torch.prover import MiniProver
 
-    monkeypatch.setenv("ZEROCHAIN_MSM_WG", "32")
     monkeypatch.setenv("ZEROCHAIN_MSM_CHUNK", "256")
     prover = MiniProver(params, device="cpu", msm_impl="hs")
-    assert isinstance(prover.msm_g2, pip.Msm) and prover.msm_g2.window_group == 32
+    assert isinstance(prover.msm_g2, pip.Msm) and prover.msm_g2.c == 8
     (got,) = prover.prove([ASSIGNMENT], rs=[RS])
     want = create_proof(MiniCommit(amount=ASSIGNMENT["amount"]), params, *RS)
     assert (got.a, got.b, got.c) == (want.a, want.b, want.c)
@@ -45,18 +43,14 @@ def test_mini_prover_hs_gives_the_bigint_proof(monkeypatch, params):
 
 
 def test_msm_options_read_the_env(monkeypatch, params):
-    from zerochain_tpu_torch.ec.fields import FqOps
     from zerochain_tpu_torch.msm import pippenger as pip
     from zerochain_tpu_torch.msm.suffix import SuffixMsm
     from zerochain_tpu_torch.prover import MiniProver
 
-    monkeypatch.delenv("ZEROCHAIN_MSM_WG", raising=False)
     monkeypatch.setenv("ZEROCHAIN_MSM_IMPL", "hs")
     prover = MiniProver(params, device="cpu")
     assert prover.msm_impl == "hs" and isinstance(prover.msm_g1, pip.Msm)
-    assert prover.msm_g1.window_group == 4
-    monkeypatch.setenv("ZEROCHAIN_MSM_WG", "8")
-    assert pip.Msm(FqOps).window_group == 8
+    assert prover.msm_g1.n_windows == 32
     monkeypatch.setenv("ZEROCHAIN_MSM_IMPL", "suffix")
     monkeypatch.setenv("ZEROCHAIN_MSM_TOTALS", "0")
     prover = MiniProver(params, device="cpu")

@@ -1,6 +1,6 @@
 // Host build of the port's CUDA device code (zerochain_tpu_torch/csrc): the
-// headers, the per-thread steps of totals_kernel.cu and
-// column_scan_kernel.cu, the one-lane chain programs of
+// headers, the per-thread steps of totals_kernel.cu, column_scan_kernel.cu
+// and the bucket sums of hs_kernel.cu, the one-lane chain programs of
 // group_program.cuh, the Fermat inverse of ff_kernels.cu and the per-lane
 // Jubjub chains of jubjub_kernels.cu compile as plain C++,
 // so their arithmetic can be held against the plain PyTorch versions where
@@ -13,6 +13,8 @@
 //   cs g2 M T  planes               -> the column scan in place, one line a plane
 //   lad g2 n_bits count  planes bits -> the ladder, one line a plane
 //   hor g2 nw c count  planes        -> the Horner combine, one line a plane
+//   fold g2 nb count  planes         -> the bucket fold, one line a plane
+//   bs g2 N M nb T  planes keys order -> the bucket sums, one line a plane
 //   fqi|fri|fsi a                    -> a^(p-2)                        (hex words)
 //   jj        p q                    -> jj_add, jj_double(p), jj_add in place
 //   jvar n_bits lanes  bx by bits    -> cur, then res, one line each
@@ -21,7 +23,8 @@
 // over the threads.  k3: T threads a row (T = 0: as many as the kernel gives
 // the row for its non-zero count, R non-zero digits a thread at least),
 // their locals summed as the kernel sums them (a butterfly over each warp's
-// lanes, then the warps in order).  lad, hor: one lane a group.
+// lanes, then the warps in order).  lad, hor, fold: one lane a group.  bs:
+// T threads a row, each phase (fill, slices, merge) ending in a barrier.
 #include <cstdio>
 #include <cstring>
 #include <vector>
@@ -29,6 +32,7 @@
 #include "column_scan_kernel.cu"
 #include "ff_kernels.cu"
 #include "group_program.cuh"
+#include "hs_kernel.cu"
 #include "jubjub_kernels.cu"
 #include "totals_kernel.cu"
 
@@ -180,6 +184,39 @@ template <class E> static void horner(int nw, int c, long long count) {
   print_planes<E>(outs);
 }
 
+template <class E> static void fold(int nb, long long count) {
+  auto planes = read_planes<E>(12 * count * nb);
+  std::vector<std::vector<uint32_t>> outs(planes.size(), std::vector<uint32_t>(12 * count));
+  const uint32_t* in[6]; uint32_t* out[6];
+  for (size_t k = 0; k < planes.size(); k++) { in[k] = planes[k].data(); out[k] = outs[k].data(); }
+  const ZpSet* ps = program_set<E>();
+  std::vector<uint32_t> slots(ps->n_slots * 12);
+  for (long long row = 0; row < count; row++)
+    zp_fold<E>(ps, ZpGroup{slots.data(), 0, 1, 1u}, in, out, nb, count, row, true);
+  print_planes<E>(outs);
+}
+
+template <class E> static void bucket_sums(int N, long long M, int nb, int T) {
+  auto planes = read_planes<E>(12 * N);
+  std::vector<std::vector<uint32_t>> outs(planes.size(), std::vector<uint32_t>(12 * M * nb));
+  std::vector<int32_t> keys(M * N), order(M * N);
+  for (auto& x : keys) if (scanf("%d", &x) != 1) x = 0;
+  for (auto& x : order) if (scanf("%d", &x) != 1) x = 0;
+  std::vector<uint32_t> carry(M * T * 2 * 3 * E::W, 0xdeadbeefu);
+  BucketArgs a;
+  for (size_t k = 0; k < planes.size(); k++) { a.planes[k] = planes[k].data(); a.out[k] = outs[k].data(); }
+  a.keys = keys.data(); a.order = order.data(); a.carry = carry.data();
+  a.N = N; a.nb = nb; a.M = M;
+  for (long long m = 0; m < M; m++) {
+    int lo, hi;
+    bs_range(a, m, &lo, &hi);
+    for (int t = 0; t < T; t++) bs_fill<E>(a, m, t, T);
+    for (int t = 0; t < T; t++) bs_slice<E>(a, m, lo, hi, t, T);
+    for (int t = 0; t < T; t++) bs_merge<E>(a, m, lo, hi, t, T);
+  }
+  print_planes<E>(outs);
+}
+
 template <class E> static void column_scan(long long M, int T) {
   constexpr int NP = 3 * E::W / 12;
   const long long n = M * T * ZC_CS_LANES;
@@ -225,6 +262,14 @@ int main() {
       int g2, nw, c; long long count;
       if (scanf("%d %d %d %lld", &g2, &nw, &c, &count) != 4) return 2;
       if (g2) horner<Fq2E>(nw, c, count); else horner<FqE>(nw, c, count);
+    } else if (!strcmp(op, "fold")) {
+      int g2, nb; long long count;
+      if (scanf("%d %d %lld", &g2, &nb, &count) != 3) return 2;
+      if (g2) fold<Fq2E>(nb, count); else fold<FqE>(nb, count);
+    } else if (!strcmp(op, "bs")) {
+      int g2, N, nb, T; long long M;
+      if (scanf("%d %d %lld %d %d", &g2, &N, &M, &nb, &T) != 5) return 2;
+      if (g2) bucket_sums<Fq2E>(N, M, nb, T); else bucket_sums<FqE>(N, M, nb, T);
     } else if (!strcmp(op, "cs")) {
       int g2, T; long long M;
       if (scanf("%d %lld %d", &g2, &M, &T) != 3) return 2;

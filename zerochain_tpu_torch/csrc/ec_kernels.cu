@@ -1,15 +1,16 @@
 // Jacobian point add and double for G1 (over Fq) and G2 (over Fq2), one
-// thread per point; and the two chains the prover runs on few points, each
-// in ONE launch: the double-and-add ladder (zc_ec_ladder) and the Horner
-// window combine (zc_ec_horner), one group of lanes per point
-// (group_program.cuh).
+// thread per point; and the three chains the prover runs on few points, each
+// in ONE launch: the double-and-add ladder (zc_ec_ladder), the Horner window
+// combine (zc_ec_horner) and the bucket MSM's running-sum fold (zc_ec_fold),
+// one group of lanes per point or row (group_program.cuh).
 //
 // Replaces: zerochain_tpu/ec/pallas_ec.py, the kernels built by
 // `_build_kernels` (add_kernel, double_kernel; public wrappers g1_add,
 // g1_double, g2_add, g2_double).  The JAX package runs the ladder
-// (ec/weierstrass.py: scalar_mul_bits_jac) and the Horner combine
-// (msm/suffix.py) as one compiled device loop over those group operations;
-// the two chain kernels are that loop.
+// (ec/weierstrass.py: scalar_mul_bits_jac), the Horner combine
+// (msm/suffix.py) and the bucket fold (msm/pippenger.py: Msm._window_total,
+// 255 steps of two adds) as compiled device loops over those group
+// operations; the chain kernels are those loops.
 //
 // Bound on this card: integer operations.  A G1 add is 16 Fq multiplies
 // (4,608 32-bit multiply-adds) for 9*48 bytes moved; a G2 add is three times
@@ -22,13 +23,14 @@
 // keep code size and compile time down; a G2 point is 72 words, so two
 // operands and the temporaries spill to local memory, which is accepted.
 //
-// The chains run 255 (ladder) or 31 x 9 (Horner) dependent group operations
-// on 32-96 points: far too few threads to fill the card, so a chain's time is
-// its step's latency.  A group of L lanes (L = 32: one warp per point) runs
-// each step as a program of Fq operations in stages, the independent
-// multiplies of a stage on separate lanes, the operands in shared memory
-// (group_program.cuh).  With L = 1 the same program runs on one lane per
-// point, which is the one-thread-per-point form the wrapper can also pick.
+// The chains run 255 (ladder), 31 x 9 (Horner) or 255 x 2 (fold) dependent
+// group operations on 32-1,024 points or rows: too few threads to fill the
+// card, so a chain's time is its step's latency.  A group of L lanes (L = 32:
+// one warp per point) runs each step as a program of Fq operations in stages,
+// the independent multiplies of a stage on separate lanes, the operands in
+// shared memory (group_program.cuh).  With L = 1 the same program runs on one
+// lane per point, which is the one-thread-per-point form the wrapper can also
+// pick.
 #include <cuda_runtime.h>
 
 #include "group_program.cuh"
@@ -128,6 +130,18 @@ horner_kernel(const ZpSet* ps, Planes pl, int nw, int c, long long count, int L)
                g < count);
 }
 
+template <class E>
+__global__ void __launch_bounds__(32)
+fold_kernel(const ZpSet* ps, Planes pl, int nb, long long count, int L) {
+  extern __shared__ uint32_t zp_sh[];
+  const int gi = threadIdx.x / L;
+  const long long g = (long long)blockIdx.x * (blockDim.x / L) + gi;
+  const unsigned mask = blockDim.x >= 32 ? 0xffffffffu : (1u << blockDim.x) - 1u;
+  const ZpGroup grp{zp_sh + gi * ps->n_slots * 12, (int)(threadIdx.x % L), L, mask};
+  zp_fold<E>(ps, grp, pl.p, pl.out, nb, count, g < count ? g : count - 1,
+             g < count);
+}
+
 // Groups per block (one warp at most): as many as fit 32 lanes and the
 // shared-memory limit.
 int zp_groups_per_block(int L, int n_slots) {
@@ -193,5 +207,22 @@ extern "C" int zc_ec_horner(int g2, const void* progs, int n_slots,
   const ZpSet* ps = (const ZpSet*)progs;
   if (g2) horner_kernel<Fq2E><<<blocks, gpb * lanes, smem, s>>>(ps, pl, nw, c, count, lanes);
   else horner_kernel<FqE><<<blocks, gpb * lanes, smem, s>>>(ps, pl, nw, c, count, lanes);
+  return (int)cudaGetLastError();
+}
+
+// ptrs: the buckets' planes (12, count, nb) then the output's (12, count).
+extern "C" int zc_ec_fold(int g2, const void* progs, int n_slots,
+                          const void* const* ptrs, int nb, long long count,
+                          int lanes, void* stream) {
+  if (!zp_lanes_ok(lanes) || n_slots < 1 || count < 1 || nb < 1)
+    return (int)cudaErrorInvalidValue;
+  const Planes pl = zp_planes(g2 ? 6 : 3, ptrs);
+  const int gpb = zp_groups_per_block(lanes, n_slots);
+  const unsigned blocks = (unsigned)((count + gpb - 1) / gpb);
+  const size_t smem = (size_t)gpb * n_slots * 48;
+  cudaStream_t s = (cudaStream_t)stream;
+  const ZpSet* ps = (const ZpSet*)progs;
+  if (g2) fold_kernel<Fq2E><<<blocks, gpb * lanes, smem, s>>>(ps, pl, nb, count, lanes);
+  else fold_kernel<FqE><<<blocks, gpb * lanes, smem, s>>>(ps, pl, nb, count, lanes);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
-// Point chains spread over a group of lanes: the double-and-add ladder and
-// the Horner window combine of ec_kernels.cu, one group of L lanes per point.
+// Point chains spread over a group of lanes: the double-and-add ladder, the
+// Horner window combine and the bucket fold of ec_kernels.cu, one group of L
+// lanes per point (per row for the fold).
 //
 // A chain step (add-2007-bl and dbl-2009-l over Fq or Fq2) is lowered, once
 // and on the host, to a straight-line PROGRAM of Fq operations (Montgomery
@@ -54,9 +55,10 @@ enum : int { ZP_STEP = 0, ZP_ADDP = 1, ZP_DBLA = 2, ZP_N_PROGS = 3 };
 //   STEP: R = ACC + CUR (general formula, H and RR kept), CN = 2 * CUR
 //   ADDP: R = ACC + CUR (general formula, H and RR kept)
 //   DBLA: DA = 2 * ACC
+//   TOT (the fold's total) is read and written by the fold alone.
 enum : int {
   ZP_ACC = 0, ZP_CUR = 3, ZP_R = 6, ZP_CN = 9, ZP_H = 12, ZP_RR = 13,
-  ZP_DA = 14, ZP_PINNED = 17
+  ZP_DA = 14, ZP_TOT = 17, ZP_PINNED = 20
 };
 
 constexpr int ZP_MAX_OPS = 448;
@@ -209,6 +211,48 @@ ZC_HD void zp_horner(const ZpSet* ps, const ZpGroup& g,
       const int k = w / 12, j = w % 12;
       out[k][j * count + pt] = S[(ZP_ACC * NC + k) * 12 + j];
     }
+}
+
+// The running-sum bucket fold of cuda_ec.bucket_fold_plain for row `row`:
+// RUN = TOT = identity; for v = nb - 1 .. 1: RUN = RUN + B[v], then
+// TOT = TOT + RUN, each an ADDP with its cases.  RUN lives in ACC; for the
+// second add ACC and CUR take TOT and RUN and are put back after it.
+// bk: planes (12, count, nb); out: planes (12, count).
+template <class E>
+ZC_HD void zp_fold(const ZpSet* ps, const ZpGroup& g,
+                   const uint32_t* const* bk, uint32_t* const* out,
+                   int nb, long long count, long long row, bool write) {
+  constexpr int NC = E::W / 12, PW = 3 * E::W;
+  uint32_t* S = g.s;
+  const int acc = ZP_ACC * NC * 12, cur = ZP_CUR * NC * 12, tot = ZP_TOT * NC * 12;
+  for (int w = g.lane; w < PW; w += g.L) {
+    const uint32_t id = zp_identity_word(NC, w / 12, w % 12);
+    S[acc + w] = id;
+    S[tot + w] = id;
+  }
+  ZP_SYNC(g.mask);
+  for (int v = nb - 1; v >= 1; --v) {
+    for (int w = g.lane; w < PW; w += g.L)
+      S[cur + w] = bk[w / 12][((long long)(w % 12) * count + row) * nb + v];
+    ZP_SYNC(g.mask);
+    zp_run(ps, ZP_ADDP, g);
+    zp_finish_add<E>(ps, g, true, false);       // RUN + B[v]
+    for (int w = g.lane; w < PW; w += g.L) {  // each word by one lane
+      S[cur + w] = S[acc + w];
+      S[acc + w] = S[tot + w];
+    }
+    ZP_SYNC(g.mask);
+    zp_run(ps, ZP_ADDP, g);
+    zp_finish_add<E>(ps, g, true, false);       // TOT + RUN
+    for (int w = g.lane; w < PW; w += g.L) {
+      S[tot + w] = S[acc + w];
+      S[acc + w] = S[cur + w];
+    }
+    ZP_SYNC(g.mask);
+  }
+  if (write)
+    for (int w = g.lane; w < PW; w += g.L)
+      out[w / 12][(long long)(w % 12) * count + row] = S[tot + w];
 }
 
 // ---------------------------------------------------------------------

@@ -19,10 +19,26 @@ JAX package runs both as one compiled loop over its group-law kernels;
 ``ladder_plain`` and ``horner_plain`` are those loops over ``add_plain`` and
 ``double_plain``, and the kernels return their words exactly.
 
+``bucket_fold`` wraps the third chain kernel of that file, the bucket MSM's
+running-sum fold (``Msm._window_total`` of the JAX package: for v = nb - 1
+.. 1, ``running += B[v]; total += running``), one group of lanes a row;
+``bucket_fold_plain`` is that loop over ``add_plain`` and the kernel returns
+its words exactly.
+
 ``hs_add_select`` wraps ``csrc/hs_kernel.cu`` (the counterpart of the fused
 Hillis-Steele level ``hs_add_select`` of the same JAX module): one level of
 a segmented prefix scan, ``out = (f | keep) ? x : add(xl, x)``;
-``hs_add_select_plain`` is its plain version.
+``hs_add_select_plain`` is its plain version.  ``bucket_sums`` wraps the
+other entry of that file, ``zc_hs_bucket_sums``, the bucket sums of the
+bucket MSM (``msm.pippenger.Msm``): for every row m (one window of one proof)
+of sorted digits ``keys_s[m]`` with their point indices ``order[m]``,
+``bucket[m, v]`` = the sum of the points whose digit is v, for v = 1 .. nb -
+1, bucket 0 and empty buckets the identity.  It takes the place of the JAX
+``Msm``'s sorted copy, Hillis-Steele levels and scatter;
+``bucket_sums_plain`` is that composition over ``hs_add_select_plain``, whose
+words are the JAX ``Msm``'s.  The kernel adds each run in another order (one
+add a point along its slice, the slices' pieces after), so the two agree as
+group elements: compare after ``normalize``.  The points may have any Z.
 
 Points: (X, Y, Z), each coordinate a field element of ``F`` (``FqOps``: one
 ``(12, *batch)`` int32 tensor; ``Fq2Ops``: a pair of them); infinity <=>
@@ -39,7 +55,9 @@ from .. import _build
 
 launches = {"g1_add": 0, "g1_double": 0, "g2_add": 0, "g2_double": 0,
             "g1_ladder": 0, "g2_ladder": 0, "g1_horner": 0, "g2_horner": 0,
-            "g1_hs_add_select": 0, "g2_hs_add_select": 0}
+            "g1_bucket_fold": 0, "g2_bucket_fold": 0,
+            "g1_hs_add_select": 0, "g2_hs_add_select": 0,
+            "g1_bucket_sums": 0, "g2_bucket_sums": 0}
 
 # Lanes per point of the chain kernels: 32 spreads a step's independent
 # multiplies over a warp; 1 runs the same program on one lane per point.
@@ -161,11 +179,88 @@ def horner_plain(F, totals, c: int):
     return res
 
 
+def bucket_fold_plain(F, buckets):
+    """Bucket sums (leaves (12, *batch, nb)) -> sum_v v * B[v]: running =
+    total = identity; for v = nb-1 .. 1: running += B[v], total += running.
+    Bucket 0 is not read."""
+    F = F.plain
+    leaf = F.leaves(buckets[0])[0]
+    nb = leaf.shape[-1]
+    batch = tuple(leaf.shape[1:-1])
+    dev = leaf.device
+    running = (F.ones(batch, dev), F.ones(batch, dev), F.zeros(batch, dev))
+    total = running
+    for v in range(nb - 1, 0, -1):
+        running = add_plain(F, running, tuple(
+            F.map(lambda a, v=v: a[..., v], t) for t in buckets))
+        total = add_plain(F, total, running)
+    return total
+
+
 def hs_add_select_plain(F, xl, x, f, keep):
     """One Hillis-Steele level: x where f | keep, else add(xl, x)."""
     pass_ = torch.broadcast_to(f | keep, F.batch_shape(x[0]))
     merged = add_plain(F, xl, x)
     return tuple(F.select(pass_, a, b) for a, b in zip(x, merged))
+
+
+def _pmap(F, fn, *pts):
+    """fn over the matching word tensors of points."""
+    return tuple(F.map(fn, *coords) for coords in zip(*pts))
+
+
+def _segmented_hs(F, pts, starts):
+    """Segmented inclusive prefix sums along the last axis, Hillis-Steele:
+    log2(N) levels of ``hs_add_select_plain``; starts marks segment heads."""
+    n = starts.shape[-1]
+    pos = torch.arange(n, device=starts.device)
+    f = starts
+    for d in range(max(1, (n - 1).bit_length())):
+        s = 1 << d
+        xl = _pmap(F, lambda a: torch.roll(a, s, dims=-1), pts)
+        keep = pos < s  # no left neighbour at distance s
+        pts = hs_add_select_plain(F, xl, pts, f, keep)
+        f = torch.where(keep, f, f | torch.roll(f, s, dims=-1))
+    return pts
+
+
+_PLAIN_SLAB = 1 << 21  # coordinate elements (points x ncomp) per pass
+
+
+def bucket_sums_plain(F, points, keys_s, order, nb: int):
+    """points: leaves (12, N); keys_s, order: (*lead, N), keys ascending in
+    [0, nb) -> leaves (12, *lead, nb): the sorted copy, the segmented
+    Hillis-Steele scan and the scatter of each run's last prefix into its
+    bucket; bucket 0 is the identity."""
+    N = order.shape[-1]
+    lead = tuple(order.shape[:-1])
+    M = order.numel() // N
+    slab = max(1, _PLAIN_SLAB // (N * F.ncomp))
+    if M > slab:  # bound the temporaries: slabs of rows
+        k2, o2 = keys_s.reshape(M, N), order.reshape(M, N)
+        parts = [bucket_sums_plain(F, points, k2[m: m + slab],
+                                   o2[m: m + slab], nb)
+                 for m in range(0, M, slab)]
+        return _pmap(F, lambda *a: torch.cat(a, 1).reshape(12, *lead, nb),
+                     *parts)
+    dev = order.device
+    idx = order.reshape(-1).to(torch.int64)
+    pts = _pmap(F, lambda a: a.index_select(1, idx).reshape(12, M, N), points)
+    keys = keys_s.reshape(M, N)
+    edge = keys[:, 1:] != keys[:, :-1]
+    first = torch.ones((M, 1), dtype=torch.bool, device=dev)
+    prefix = _segmented_hs(F, pts, torch.cat([first, edge], dim=-1))
+    # each run's last prefix into its bucket; other positions -> a dummy
+    # slot that is cut off
+    ends = torch.cat([edge, first], dim=-1)
+    slot = torch.where(ends, keys, nb).to(torch.int64).expand(12, M, N)
+    ident = (F.ones((M, nb + 1), dev), F.ones((M, nb + 1), dev),
+             F.zeros((M, nb + 1), dev))
+    buckets = _pmap(F, lambda d, s: d.scatter(-1, slot, s)[..., :nb], ident,
+                    prefix)
+    buckets = _pmap(F, lambda b, i: torch.cat([i[..., :1], b[..., 1:]], -1),
+                    buckets, ident)
+    return _pmap(F, lambda a: a.reshape(12, *lead, nb), buckets)
 
 
 # ---------------------------------------------------------------------
@@ -195,6 +290,20 @@ def _hs_fn():
     return fn
 
 
+def _bs_fn():
+    lib = _build.lib("hs_kernel")
+    fn = lib.zc_hs_bucket_sums
+    if not getattr(fn, "_typed", False):
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+                       ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn._typed = True
+    return fn
+
+
 _programs: dict = {}
 
 
@@ -208,6 +317,9 @@ def _chain_fn(name):
             fn.argtypes = head + [ctypes.c_void_p, ctypes.c_int,
                                   ctypes.c_longlong, ctypes.c_int,
                                   ctypes.c_void_p]
+        elif name == "zc_ec_fold":
+            fn.argtypes = head + [ctypes.c_int, ctypes.c_longlong,
+                                  ctypes.c_int, ctypes.c_void_p]
         else:
             fn.argtypes = head + [ctypes.c_int, ctypes.c_int,
                                   ctypes.c_longlong, ctypes.c_int,
@@ -316,6 +428,39 @@ def horner(F, totals, c: int, lanes=None):
     return _chain_out(F, outs)
 
 
+def bucket_fold(F, buckets, lanes=None):
+    """Bucket sums (leaves (12, *batch, nb)) -> sum_v v * B[v] (leaves (12,
+    *batch)), the running-sum fold, in one launch."""
+    kind = _device_type(F, buckets)
+    if kind == "cpu":
+        return bucket_fold_plain(F, buckets)
+    if kind != "cuda":
+        raise ValueError(f"unsupported device {F.device(buckets[0])}")
+    planes = _prepare(_planes(F, buckets))
+    ref = planes[0]
+    if ref.dim() < 2:
+        raise ValueError("buckets need a bucket axis after the 12 words")
+    nb = ref.shape[-1]
+    batch = tuple(ref.shape[1:-1])
+    count = ref[0].numel() // nb if nb else 0
+    if nb < 2 or count == 0:  # nothing to launch: the identity
+        dev = ref.device
+        return (F.ones(batch, dev), F.ones(batch, dev), F.zeros(batch, dev))
+    outs = [torch.empty((12, *batch), dtype=torch.int32, device=ref.device)
+            for _ in planes]
+    prog, n_slots = _program(F, ref.device)
+    ptrs = (ctypes.c_void_p * (2 * len(planes)))(
+        *[t.data_ptr() for t in planes], *[t.data_ptr() for t in outs])
+    with torch.cuda.device(ref.device):
+        rc = _chain_fn("zc_ec_fold")(
+            int(F.ncomp == 2), prog.data_ptr(), n_slots, ptrs, nb, count,
+            lanes or CHAIN_LANES, torch.cuda.current_stream().cuda_stream)
+    launches[("g1_" if F.ncomp == 1 else "g2_") + "bucket_fold"] += 1
+    if rc != 0:
+        raise RuntimeError(f"ec bucket_fold/{F.name}: CUDA error {rc}")
+    return _chain_out(F, outs)
+
+
 def _planes(F, pt):
     """The coordinate word tensors of a point, in kernel order."""
     out = []
@@ -420,3 +565,55 @@ def hs_add_select(F, xl, x, f, keep):
     if F.ncomp == 1:
         return tuple(outs)
     return tuple((outs[2 * k], outs[2 * k + 1]) for k in range(3))
+
+
+BUCKET_THREADS = 128  # threads a row (csrc/hs_kernel.cu: one CTA a row)
+
+
+def bucket_sums(F, points, keys_s, order, nb: int):
+    """See the module docstring.  points: leaves (12, N), any Z; keys_s,
+    order: (*lead, N) int32, keys ascending in [0, nb) along each row.
+    -> Jacobian leaves (12, *lead, nb)."""
+    planes = _planes(F, points)
+    dev = planes[0].device
+    N = order.shape[-1]
+    lead = tuple(order.shape[:-1])
+    if keys_s.shape != order.shape:
+        raise ValueError("keys_s and order differ in shape")
+    for t in planes:
+        if t.dtype != torch.int32 or tuple(t.shape) != (12, N):
+            raise ValueError(
+                f"point planes must be int32 (12, {N}), got {t.dtype} "
+                f"{tuple(t.shape)}")
+        if t.device != dev:
+            raise ValueError("point planes on different devices")
+    for t in (keys_s, order):
+        if t.dtype != torch.int32:
+            raise TypeError("keys_s and order must be int32")
+        if t.device != dev:
+            raise ValueError("keys/order and points on different devices")
+    if dev.type == "cpu":
+        return bucket_sums_plain(F, points, keys_s, order, nb)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+
+    planes = [t.contiguous() for t in planes]
+    ks = keys_s.contiguous()
+    od = order.contiguous()
+    M = od.numel() // N if N else 0
+    outs = [torch.empty((12, M, nb), dtype=torch.int32, device=dev)
+            for _ in planes]
+    if M:
+        in_ptrs = (ctypes.c_void_p * len(planes))(*[t.data_ptr() for t in planes])
+        out_ptrs = (ctypes.c_void_p * len(outs))(*[t.data_ptr() for t in outs])
+        # per row and thread: the head and tail pieces of its slice's runs
+        carry = torch.empty(M * BUCKET_THREADS * 2 * 3 * 12 * F.ncomp,
+                            dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            rc = _bs_fn()(int(F.ncomp == 2), in_ptrs, ks.data_ptr(),
+                          od.data_ptr(), out_ptrs, carry.data_ptr(), N, M, nb,
+                          BUCKET_THREADS, torch.cuda.current_stream().cuda_stream)
+        launches[("g1" if F.ncomp == 1 else "g2") + "_bucket_sums"] += 1
+        if rc != 0:
+            raise RuntimeError(f"bucket_sums/{F.name}: CUDA error {rc}")
+    return _chain_out(F, [t.reshape(12, *lead, nb) for t in outs])

@@ -1,21 +1,19 @@
 """Shared MSM helpers, the bucket MSM and the fixed-base MSM.
 
 `Msm` is the bucket MSM of ``zerochain_tpu/msm/pippenger.py``: per window
-it sorts the points by digit, reduces runs of equal digits with a segmented
-Hillis-Steele prefix scan (one level a launch of the ``hs_add_select``
-kernel, ec/cuda_ec.py), scatters the run sums into 2^c buckets and folds
-them with the running-sum trick; the windows combine MSB first.  ``msm_g1``
-and ``msm_g2`` are its host-level entry points (mirror affine points and int
-scalars in, an affine point out), which the Groth16 backend
-(prover/backend.py) hands to ``groth16.core``.
+it sorts the points by digit, sums the runs of equal digits into 2^c buckets
+(``bucket_sums``, ec/cuda_ec.py: the kernel that takes the place of the
+JAX ``Msm``'s Hillis-Steele levels and scatter) and folds them with the
+running-sum trick (``bucket_fold``, ec/cuda_ec.py); the windows combine MSB
+first.  ``msm_g1`` and ``msm_g2`` are its host-level entry points (mirror
+affine points and int scalars in, an affine point out), which the Groth16
+backend (prover/backend.py) hands to ``groth16.core``.
 
 `FixedBaseMsm` covers the CRS-generation pattern (one base, many scalars)
 with a precomputed (n_windows, 2^c) table + gather + log-depth tree add.
 """
 
 from __future__ import annotations
-
-import os
 
 import numpy as np
 import torch
@@ -173,85 +171,47 @@ class FixedBaseMsm:
 class Msm:
     """Variable-base bucket MSM over one Weierstrass group (G1 or G2).
 
-    ``window_group`` windows (env ``ZEROCHAIN_MSM_WG``, default 4) go through
-    the scan side by side.  The JAX package's second scan mode, 'assoc', is
-    not ported.  Digits are unsigned c-bit windows: 2^c buckets, bucket 0
-    ignored.  Tensors decide the device."""
+    Digits are unsigned c-bit windows: 2^c buckets, bucket 0 ignored.  A
+    row is one window of one proof.  All rows are sorted in one
+    ``torch.sort`` and go through one ``bucket_sums`` and one
+    ``bucket_fold`` call: on the card one launch each, with no slabs (at
+    1,024 rows of 16,384 points the digits, the sorted keys and the order
+    take a few hundred MB by their shapes); on the CPU the plain versions,
+    ``bucket_sums_plain`` in slabs of rows.  Rows are independent, so the
+    words are the JAX ``Msm``'s, whatever its window group.  The JAX
+    package's second scan mode, 'assoc', is not ported.  Tensors decide the
+    device."""
 
-    def __init__(self, field, c: int | None = None, n_bits: int = 255,
-                 window_group: int | None = None):
+    def __init__(self, field, c: int | None = None, n_bits: int = 255):
         self.F = field
         self.c = WINDOW_C if c is None else c
         self.n_bits = n_bits
         self.n_windows = -(-n_bits // self.c)
-        self.window_group = (
-            int(os.environ.get("ZEROCHAIN_MSM_WG", "4"))
-            if window_group is None else window_group)
 
-    def _segmented_hs(self, pts, starts):
-        """Segmented inclusive scan, Hillis-Steele: one hs_add_select
-        launch per level."""
-        n = starts.shape[-1]
-        pos = torch.arange(n, device=starts.device)
-        f = starts
-        for d in range(max(1, (n - 1).bit_length())):
-            s = 1 << d
-            xl = tmap(lambda a: torch.roll(a, s, dims=-1), pts)
-            keep = pos < s  # no left neighbour at distance s
-            pts = cuda_ec.hs_add_select(self.F, xl, pts, f, keep)
-            f = torch.where(keep, f, f | torch.roll(f, s, dims=-1))
-        return pts
+    def rows(self, bits):
+        """bits (n_bits, N, *B) -> every (window, proof) row of the MSM as
+        the kernels take it: (digits ascending, point order), int32
+        (n_windows * prod(B), N)."""
+        digits = digits_from_bits(bits, self.c, self.n_windows)  # (nw, N, *B)
+        keys = digits.movedim(1, -1).reshape(-1, digits.shape[1])
+        keys_s, order = torch.sort(keys.to(torch.int32), dim=-1, stable=True)
+        return keys_s, order.to(torch.int32)
 
-    def _window_total(self, points, keys):
-        """points: leaves (12, N); keys: (K, N) digits of K (window, proof)
-        rows -> the K bucket sums sum_i keys[k, i] * P_i, leaves (12, K)."""
-        F = self.F
-        K, n = keys.shape
-        dev = keys.device
-        keys_s, order = torch.sort(keys, dim=-1, stable=True)
-        idx = order.reshape(-1)
-        pts_s = tmap(lambda a: a.index_select(1, idx).reshape(12, K, n), points)
-
-        edge = keys_s[:, 1:] != keys_s[:, :-1]
-        first = torch.ones((K, 1), dtype=torch.bool, device=dev)
-        starts = torch.cat([first, edge], dim=-1)
-        prefix = self._segmented_hs(pts_s, starts)
-
-        # scatter the run sums into 2^c buckets (other positions -> a dummy
-        # slot that is cut off)
-        nb = 1 << self.c
-        ends = torch.cat([edge, first], dim=-1)
-        slot = torch.where(ends, keys_s, nb).to(torch.int64)
-        slot = slot.expand(12, K, n)
-        buckets = tmap2(
-            lambda d, s: d.scatter(-1, slot, s)[..., :nb],
-            W.identity(F, (K, nb + 1), dev), prefix)
-
-        # running-sum fold over buckets nb-1 .. 1
-        running = W.identity(F, (K,), dev)
-        total = W.identity(F, (K,), dev)
-        for i in range(nb - 1, 0, -1):
-            running = W.add(F, running, tmap(lambda a: a[..., i], buckets))
-            total = W.add(F, total, running)
-        return total
+    def _window_total(self, points, keys_s, order):
+        """points: leaves (12, N); keys_s, order: (K, N) sorted rows -> the
+        K sums sum_i keys[k, i] * P_i, leaves (12, K)."""
+        buckets = cuda_ec.bucket_sums(self.F, points, keys_s, order,
+                                      1 << self.c)
+        return cuda_ec.bucket_fold(self.F, buckets)
 
     def __call__(self, points_jac, bits):
         """points_jac: Jacobian leaves (12, N); bits: (n_bits, N, *B) ->
         Jacobian leaves (12, *B)."""
-        F = self.F
-        digits = digits_from_bits(bits, self.c, self.n_windows)  # (nw, N, *B)
-        n = digits.shape[1]
-        wg = max(1, min(self.window_group, self.n_windows))
-        parts = []
-        for g0 in range(0, self.n_windows, wg):
-            keys = digits[g0: g0 + wg].movedim(1, -1)  # (g, *B, N)
-            lead = tuple(keys.shape[:-1])
-            tot = self._window_total(points_jac, keys.reshape(-1, n))
-            parts.append(tmap(lambda a: a.reshape(12, *lead), tot))
-        totals = tcat(parts, 1)  # (12, nw, *B)
-
+        lead = tuple(bits.shape[2:])
+        tot = self._window_total(points_jac, *self.rows(bits))
+        totals = tmap(lambda a: a.reshape(12, self.n_windows, *lead), tot)
         # combine windows MSB-first: res = 2^c * res + T_w
-        return cuda_ec.horner(F, totals, self.c)
+        return cuda_ec.horner(self.F, totals, self.c)
 
 
 def naive_msm(field, points_jac, bits):

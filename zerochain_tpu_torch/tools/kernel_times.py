@@ -1,7 +1,7 @@
 """Time window_totals and the point chains of one checkout of the port.
 
     python3 zerochain_tpu_torch/tools/kernel_times.py [--root DIR] [--tag T]
-        [--prove] [--witness] [--no-synthetic] [--no-chains]
+        [--prove] [--witness] [--hs] [--no-synthetic] [--no-chains]
 
 Imports ``zerochain_tpu_torch`` and ``chip_smoke`` from DIR (default: the
 checkout this file is in), so that two checkouts can be timed in one call on
@@ -21,6 +21,13 @@ generates the ConfidentialTransfer CRS and prints JSON lines:
 - with --prove: ``ConfidentialProver.prove`` of that batch, one warm call
   then three timed ones (host clock around a synchronize, stage times with
   ``sync_stages``), and the proofs' equality across the three;
+- with --hs: the bucket MSM path, ``ConfidentialProver(msm_impl="hs")`` on
+  the same CRS, one warm call then three timed ones of that batch (stage
+  times, launches by kernel where the checkout counts them, torch.roll's
+  calls, the proofs' equality with ``prove``'s), then
+  ``groth16.core.generate_parameters`` and one ``create_proof`` through
+  ``TorchBackend``, its seconds split into the backend's device entry
+  points (each ended by a synchronize) and the host's rest;
 - with --witness: the witness stage of that batch alone
   (``confidential_witness`` on the card), one warm call then three timed
   ones, each with its field-kernel (K1) launches by op and, where the
@@ -47,6 +54,7 @@ def main() -> int:
     ap.add_argument("--tag", default="")
     ap.add_argument("--prove", action="store_true")
     ap.add_argument("--witness", action="store_true")
+    ap.add_argument("--hs", action="store_true")
     ap.add_argument("--no-synthetic", action="store_true")
     ap.add_argument("--no-chains", action="store_true")
     args = ap.parse_args()
@@ -161,6 +169,8 @@ def main() -> int:
                  stages=prover.last_timings,
                  same_proofs=[(p.a, p.b, p.c) for p in out]
                  == [(p.a, p.b, p.c) for p in first])
+    if args.hs:
+        hs_times(prover, assignments, emit)
     inputs_host, witness_fn = prover._witness_fns()
     aux, public = witness_fn(**inputs_host(assignments, prover.device))
     preps = prover._digits(*prover._quotient(aux, public))
@@ -194,6 +204,83 @@ def main() -> int:
             emit(kernel="horner", group=F.name, lanes=lanes,
                  equal=same(run(), want), ms=chip_smoke.time_ms(run, 3))
     return 0
+
+
+def hs_times(prover, assignments, emit):
+    """The bucket MSM path and the host backend of the imported checkout:
+    three timed prove_hs batches, then generate_parameters and one
+    create_proof through TorchBackend."""
+    import time
+
+    import torch
+
+    import chip_smoke
+    from zerochain_tpu_torch.ec import cuda_ec
+    from zerochain_tpu_torch.groth16.core import create_proof, generate_parameters
+    from zerochain_tpu_torch.mirror.field import R
+    from zerochain_tpu_torch.msm import cuda_scan
+    from zerochain_tpu_torch.prover import ConfidentialProver, TorchBackend
+
+    rs = [((0xA5A5 + 977 * i) * 0x9E3779B97F4A7C15 % R,
+           (0x5A5A + 613 * i) * 0xC2B2AE3D27D4EB4F % R) for i in range(32)]
+    ref = [(p.a, p.b, p.c) for p in prover.prove(assignments, rs=rs)]
+    hs = ConfidentialProver(None, _device_queries=prover._raw_queries,
+                            _vk=prover.vk, msm_impl="hs")
+    hs.sync_stages = True
+    hs.prove(assignments, rs=rs)
+    real_roll = torch.roll
+    for _ in range(3):
+        cuda_ec.reset_launches()
+        cuda_scan.reset_launches()
+        rolls = [0]
+
+        def counted_roll(*a, **kw):
+            rolls[0] += 1
+            return real_roll(*a, **kw)
+
+        torch.cuda.synchronize()
+        torch.roll = counted_roll
+        try:
+            t0 = time.perf_counter()
+            out = hs.prove(assignments, rs=rs)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            torch.roll = real_roll
+        launches = {k: v for m in (cuda_ec, cuda_scan)
+                    for k, v in m.launches.items() if v}
+        emit(kernel="prove_hs", seconds=secs, stages=hs.last_timings,
+             launches=launches, torch_roll_calls=rolls[0],
+             same_proofs=[(p.a, p.b, p.c) for p in out] == ref)
+    del hs
+
+    backend = TorchBackend()
+    t0 = time.perf_counter()
+    params = generate_parameters(ConfidentialProver.CIRCUIT(),
+                                 **chip_smoke.TOXIC, backend=backend)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    spent = {}
+    for name in ("msm_g1", "msm_g2", "compute_h"):
+        fn = getattr(backend, name)
+
+        def wrapped(*a, _fn=fn, _name=name, **kw):
+            t1 = time.perf_counter()
+            res = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[_name] = spent.get(_name, 0.0) + time.perf_counter() - t1
+            return res
+
+        setattr(backend, name, wrapped)
+    t0 = time.perf_counter()
+    proof = create_proof(prover.circuit_for(assignments[0]), params, *rs[0],
+                         backend=backend)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    emit(kernel="backend", generate_parameters_seconds=gen_s,
+         create_proof_seconds=secs, backend_seconds=spent,
+         host_seconds=secs - sum(spent.values()),
+         same_proof=(proof.a, proof.b, proof.c) == ref[0])
 
 
 if __name__ == "__main__":
