@@ -16,8 +16,9 @@ run exits non-zero (there is no CPU fallback):
   kernels  every kernel wrapper against its plain PyTorch version on the card,
            on CRS points and random field elements at the main path's shapes
            (the chain kernels, ladder, Horner and the bucket fold, also in
-           their one-lane form; window_totals and bucket_sums also on the
-           digits of the batch the prove phases prove; the field inverse and
+           their one-lane form; window_totals, bucket_sums and the split
+           tail's split_lanes / split_tail also on the digits of the batch
+           the prove phases prove; the field inverse and
            the Jubjub chains at the witness stage's shapes, the chains also
            against their former loop of field-kernel launches)
   prove    one batch of 32 proofs (warm run, then a timed run with the launch
@@ -29,7 +30,12 @@ run exits non-zero (there is no CPU fallback):
                torch.roll and launch bucket_sums and bucket_fold for every
                MSM chunk
   prove_split  the same through the suffix MSM's split tail
-               (msm_tail="split", the column_scan kernel); the same check
+               (msm_tail="split": one split_lanes and one split_tail launch
+               a chunk); its proofs must equal prove's, and its timed run
+               must call no torch.roll, launch no column_scan and no
+               window_totals, launch each split kernel once for every MSM
+               chunk, and make as many point-op launches as prove's (no
+               point add of its own)
   backend  groth16.core.generate_parameters and create_proof through
            TorchBackend on the card: the same verifying key as the CRS phase,
            and create_proof on assignment 0 equal to prove's proof 0; the
@@ -50,13 +56,13 @@ back-to-back loop through the wrapper, which the host's launch cost bounds.
 
 All comparisons are exact (tolerance 0): field kernels and the inverse,
 point add/double, the ladder, the Horner combine, the bucket fold, the
-Jubjub chains, hs_add_select and column_scan on identical words,
-window_totals and bucket_sums (which add in another order than their plain
-versions) after normalisation to affine coordinates.  Each kernel's
-launches are counted in the timed run of the path that uses it: prove for
-K1-K3, the inverse and the Jubjub chains, prove_hs for bucket_sums and the
-bucket fold, prove_split for column_scan; hs_add_select is checked but on no
-path.
+Jubjub chains, hs_add_select, column_scan and split_lanes on identical
+words, window_totals, bucket_sums and split_tail (which add in another order
+than their plain versions) after normalisation to affine coordinates.  Each
+kernel's launches are counted in the timed run of the path that uses it:
+prove for K1-K3, the inverse and the Jubjub chains, prove_hs for bucket_sums
+and the bucket fold, prove_split for split_lanes and split_tail;
+hs_add_select and column_scan are checked but on no path.
 """
 
 from __future__ import annotations
@@ -336,6 +342,7 @@ def phase_kernels(prover, B, gen, assignments):
     entries += bucket_entries(prover, B, gen, assignments)
     entries += hs_entries(prover, B, gen)
     entries += column_scan_entries(prover, B, gen)
+    entries += split_entries(prover, B, gen, assignments)
     return entries
 
 
@@ -877,10 +884,11 @@ def bucket_entries(prover, B, gen, assignments):
 
 
 def column_scan_entries(prover, B, gen):
-    """P4 at the split path's shape: one chunk of CRS points in the column
-    layout of all windows x B programs (uniform signed digits, so half the
-    Y coordinates negated and padding points in place), with P = Q and
-    P = -Q planted in two lanes of program 0."""
+    """P4's port as an op, off every path since the split tail runs
+    split_lanes: one chunk of CRS points in the column layout of all windows
+    x B programs (uniform signed digits, so half the Y coordinates negated
+    and padding points in place), with P = Q and P = -Q planted in two lanes
+    of program 0."""
     from zerochain_tpu_torch.ec import weierstrass as W
     from zerochain_tpu_torch.ec.fields import FqOps, Fq2Ops
     from zerochain_tpu_torch.ff import limbs as L
@@ -921,11 +929,169 @@ def column_scan_entries(prover, B, gen):
             name=f"msm.column_scan.{tag}", route="cuda",
             source="zerochain_tpu_torch/csrc/column_scan_kernel.cu",
             replaces=TPU_COLUMN_SCAN, counter=("scan", f"{tag}_column_scan"),
-            path="prove_split", shape=[12, M, t_depth, VL],
-            off_path=not split.column_split(N),  # --mini: chunks under 1024
+            # the split tail runs split_lanes: column_scan is an op off the path
+            path="prove_split", shape=[12, M, t_depth, VL], off_path=True,
             equal=err == 0, max_abs_err=err,
             ms=time_ms(lambda: cuda_scan.column_scan(F, pts_cm), 3),
             plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=None))
+    return out
+
+
+def lane_padded(F, chunk, sd, od):
+    """A chunk of N points with its digits and order (*lead, N) -> the same
+    sums over N' = 1024 * ceil(N / 1024) points: identities with zero digits
+    appended (the --mini chunks hold 256 points; the split kernels take
+    lanes of 1024)."""
+    from zerochain_tpu_torch.ec import weierstrass as W
+    from zerochain_tpu_torch.msm import cuda_scan
+    from zerochain_tpu_torch.msm import pippenger as pip
+
+    N = od.shape[-1]
+    pad = -N % cuda_scan.VL
+    if not pad:
+        return chunk, sd, od
+    chunk = pip.tcat([chunk, W.identity(F, (pad,), od.device)], 1)
+    sd = torch.cat([sd, sd.new_zeros((*sd.shape[:-1], pad))], -1)
+    tail = torch.arange(N, N + pad, dtype=od.dtype, device=od.device)
+    od = torch.cat([od, tail.expand(*od.shape[:-1], pad)], -1)
+    return chunk, sd.contiguous(), od.contiguous()
+
+
+def split_entry(F, pairs, nb, tag, check_rows, off_path):
+    """The split tail's two kernels over (chunk, (sorted digits, order))
+    pairs, all programs of a chunk in one launch each: split_lanes held
+    against split_lanes_plain word for word (lane totals and slots), and
+    split_tail, on split_lanes' output, against split_tail_plain after
+    normalisation, both on the programs check_rows of every pair (the plain
+    lane scan takes seconds a chunk); ms is the sum of one launch per pair.
+    The lane pass's bound counts one mixed add per non-zero position past
+    its lane's first (n_madd); the tail's its full adds (n_add): a scan of
+    the lanes that hold non-zero digits, one add per pick position (lane
+    offset plus in-lane prefix) and the sum of the non-empty buckets."""
+    from zerochain_tpu_torch.ec import weierstrass as W
+    from zerochain_tpu_torch.msm import cuda_scan
+    from zerochain_tpu_torch.msm import pippenger as pip
+
+    VL = cuda_scan.VL
+    acc = {k: dict(err=0.0, plain_ms=0.0, ms=0.0, n_bytes=0)
+           for k in ("lanes", "tail")}
+    nonzero = n_madd = n_add = rows_checked = 0
+    words = 3 * F.ncomp * 12
+    for chunk, (sd, od) in pairs:
+        chunk, sd, od = lane_padded(F, chunk, sd, od)
+        N = od.shape[-1]
+        D = N // VL
+        sd2, od2 = sd.reshape(-1, N), od.reshape(-1, N)
+        M = sd2.shape[0]
+        rows = check_rows[check_rows < M]
+        rows_checked += rows.numel()
+        lanes, slots = cuda_scan.split_lanes(F, chunk, sd2, od2, nb)
+        want, p_ms = timed(lambda: cuda_scan.split_lanes_plain(
+            F, chunk, sd2[rows], od2[rows], nb))
+        got = [pip.tmap(lambda t: t[:, rows], x) for x in (lanes, slots)]
+        a = acc["lanes"]
+        a["err"] = max(a["err"], max_abs_err(leaves_of(got[0]) + leaves_of(got[1]),
+                                             leaves_of(want[0]) + leaves_of(want[1])))
+        a["plain_ms"] += p_ms
+        a["ms"] += time_ms(lambda: cuda_scan.split_lanes(F, chunk, sd2, od2, nb), 3)
+        a["n_bytes"] += (words * 4 * N + 2 * 4 * M * N
+                         + words * 4 * M * (VL + nb))
+        tot = cuda_scan.split_tail(F, lanes, slots, sd2, nb)
+        want, p_ms = timed(lambda: cuda_scan.split_tail_plain(
+            F, got[0], got[1], sd2[rows], nb))
+        gx, gy, ginf = W.normalize(F, pip.tmap(lambda t: t[:, rows], tot))
+        wx, wy, winf = W.normalize(F, want)
+        a = acc["tail"]
+        a["err"] = max(a["err"], max_abs_err(leaves_of((gx, gy)) + [ginf],
+                                             leaves_of((wx, wy)) + [winf]))
+        a["plain_ms"] += p_ms
+        a["ms"] += time_ms(lambda: cuda_scan.split_tail(F, lanes, slots, sd2, nb), 3)
+        a["n_bytes"] += words * 4 * M * (VL + nb) + 4 * M * N + words * 4 * M
+        mag = sd2.abs()
+        nnz = (mag != 0).sum(-1)
+        n_lanes = (nnz + D - 1) // D
+        nxt = torch.cat([mag[:, 1:], torch.zeros_like(mag[:, :1])], -1)
+        nonzero += int(nnz.sum())
+        n_madd += int((nnz - n_lanes).sum())
+        n_add += int((n_lanes - 1).clamp(min=0).sum()
+                     + ((mag > nxt) & (mag < nb)).sum()
+                     + (mag[:, 0].clamp(max=nb - 1) - 1).clamp(min=0).sum())
+    out = []
+    for kind, ops in (("lanes", n_madd * group_op_ops(F.ncomp, "madd")),
+                      ("tail", n_add * group_op_ops(F.ncomp, "add"))):
+        a = acc[kind]
+        bnd, by = bound_ms(a["n_bytes"], ops)
+        out.append(dict(
+            name=f"msm.split_{kind}.{tag}", route="cuda",
+            source="zerochain_tpu_torch/csrc/split_tail_kernel.cu",
+            replaces=TPU_COLUMN_SCAN,
+            counter=("scan", f"{tag[:2]}_split_{kind}"),
+            path="prove_split", off_path=off_path,
+            shape=[len(pairs), list(pairs[0][1][0].shape)],
+            equal=a["err"] == 0, max_abs_err=a["err"], nonzero_digits=nonzero,
+            **({"n_madd": n_madd} if kind == "lanes" else {"n_add": n_add}),
+            rows_checked=rows_checked, ms=a["ms"], plain_ms=a["plain_ms"],
+            bound_ms=bnd, bound_by=by, library_ms=None))
+    return out
+
+
+def split_entries(prover, B, gen, assignments):
+    """split_lanes and split_tail at the split path's shape (all windows x B
+    programs of a chunk in one launch each).  On the batch's real signed
+    digits: every chunk of A, B1, L, H and B2, checked on the programs of
+    proofs 0 and B - 1.  On
+    planted rows of uniform signed digits over one CRS chunk, checked on the
+    first 8 programs: P = Q at the first add of lane 0 (thread 0 doubles
+    while the other lanes of its warp take the general add) and P = -Q
+    inside lane 5 (program 0), a one-key row (every pick in the last lane),
+    an all-zero row, a non-zero count that ends inside lane 7.  Under --mini
+    the chunks are padded with identities to 1024 points (the real digits)
+    or tiled to 2048 (the planted rows), and the entries are off the path:
+    its 256-point chunks take the split tail's plain prefix scan."""
+    from zerochain_tpu_torch.ec.fields import FqOps, Fq2Ops
+    from zerochain_tpu_torch.ff import limbs as L
+    from zerochain_tpu_torch.msm import cuda_scan
+    from zerochain_tpu_torch.msm import pippenger as pip
+    from zerochain_tpu_torch.msm.suffix import SuffixMsm
+
+    dev = prover.device
+    mini = not prover.msm_g1.column_split(pip.first_leaf(prover.h_chunks[0]).shape[-1])
+    nw, nb = prover.msm_g1.n_windows, prover.msm_g1.nb
+    inputs_host, witness_fn = prover._witness_fns()
+    aux, public = witness_fn(**inputs_host(assignments, dev))
+    a_p, b1_p, b2_p, l_p, h_p = prover._digits(*prover._quotient(aux, public))
+    check = torch.tensor([w * B + b for w in range(nw) for b in (0, B - 1)],
+                         device=dev)
+    g1 = list(zip(prover.a_chunks, a_p)) + list(zip(prover.b1_chunks, b1_p)) \
+        + list(zip(prover.l_chunks, l_p)) + list(zip(prover.h_chunks, h_p))
+    out = (split_entry(FqOps, g1, nb, "g1.real", check, mini)
+           + split_entry(Fq2Ops, list(zip(prover.b2_chunks, b2_p)), nb,
+                         "g2.real", check, mini))
+    del aux, public, a_p, b1_p, b2_p, l_p, h_p, g1
+
+    VL = cuda_scan.VL
+    for F, chunk, tag in ((FqOps, prover.h_chunks[0], "g1"),
+                          (Fq2Ops, prover.b2_chunks[0], "g2")):
+        N = pip.first_leaf(chunk).shape[-1]
+        if N < 2 * VL:  # --mini: tile the chunk up to two depths
+            reps = -(-2 * VL // N)
+            chunk = pip.tmap(lambda t: t.repeat(1, reps)[:, :2 * VL].contiguous(),
+                             chunk)
+            N = 2 * VL
+        D = N // VL
+        split = SuffixMsm(F, c=8, signed=True, tail="split")
+        sd, od = split.prep(split.digits(random_elements(L.FR, (N, B), gen)))
+        sd, od = sd.reshape(-1, N).clone(), od.reshape(-1, N).clone()
+        od[0, :2] = 1                                   # P = Q in lane 0
+        sd[0, 1] = sd[0, 0]
+        od[0, 5 * D: 5 * D + 2] = 2                     # P = -Q in lane 5
+        sd[0, 5 * D + 1] = -sd[0, 5 * D]
+        flip = torch.rand(N, generator=gen, device=dev) < 0.5
+        sd[1] = torch.where(flip, -77, 77)              # one key
+        sd[2] = 0                                       # all zero
+        sd[3, 7 * D + 1:] = 0                           # ends inside lane 7
+        out += split_entry(F, [(chunk, (sd, od))], split.nb, f"{tag}.planted",
+                           torch.arange(8, device=dev), mini)
     return out
 
 
@@ -955,6 +1121,42 @@ def phase_profile(prover, assignments, rs, timed_seconds, path):
          device_idle_share=1.0 - busy_us / 1e6 / timed_seconds,
          kernels=[dict(name=k[:80], count=c, total_ms=t / 1e3,
                        mean_us=t / c) for k, c, t in rows[:24]])
+
+
+def point_ops(counts) -> int:
+    """Point-op launches of a run: add, double, ladder, Horner, fold and
+    bucket sums (every point kernel of ec/cuda_ec.py but hs_add_select)."""
+    return sum(n for k, n in counts["ec"].items() if "hs_" not in k)
+
+
+def check_split_launches(split_prover, counts, rolls, prove_counts):
+    """The timed prove_split ran the split tail as one split_lanes and one
+    split_tail launch a chunk of 1024 lanes or more, and no column_scan or
+    window_totals; where
+    every chunk is such a chunk, it called no torch.roll and made no point-op
+    launch beyond prove's (the tail adds no point of its own)."""
+    from zerochain_tpu_torch.msm import pippenger as pip
+
+    msm = split_prover.msm_g1
+    groups = {"g1": [c for chs in (split_prover.a_chunks, split_prover.b1_chunks,
+                                    split_prover.l_chunks, split_prover.h_chunks)
+                     for c in chs],
+              "g2": list(split_prover.b2_chunks)}
+    scan = counts["scan"]
+    other_chunks = 0
+    for g, chunks in groups.items():
+        n = sum(msm.column_split(pip.first_leaf(c).shape[-1]) for c in chunks)
+        other_chunks += len(chunks) - n
+        got = (scan[f"{g}_split_lanes"], scan[f"{g}_split_tail"],
+               scan[f"{g}_column_scan"], scan[f"{g}_window_totals"])
+        if got != (n, n, 0, 0):
+            raise SystemExit(f"prove_split: {g} split_lanes / split_tail / "
+                             f"column_scan / window_totals launches {got} for "
+                             f"{n} chunks of 1024 lanes or more")
+    if other_chunks == 0 and (rolls or point_ops(counts) != point_ops(prove_counts)):
+        raise SystemExit(f"prove_split: {rolls} torch.roll calls and "
+                         f"{point_ops(counts)} point-op launches (prove: "
+                         f"{point_ops(prove_counts)}); expected none and the same")
 
 
 def check_bucket_launches(prover, counts, rolls):
@@ -1164,8 +1366,7 @@ def main() -> int:
              proofs_per_second=B / secs, stages=p.last_timings,
              launches=counts, total_launches=sum(
                  n for c in counts.values() for n in c.values()),
-             point_op_launches=sum(  # add, double, ladder, Horner, fold, bucket sums
-                 n for k, n in counts["ec"].items() if "hs_" not in k),
+             point_op_launches=point_ops(counts),
              bucket_msm_launches=bucket, torch_roll_calls=rolls[0])
         return out, secs, counts, rolls[0]
 
@@ -1184,6 +1385,9 @@ def main() -> int:
         path_proofs[phase], secs, path_counts[phase], rolls = drive(other, phase)
         if phase == "prove_hs":
             check_bucket_launches(prover, path_counts[phase], rolls)
+        else:
+            check_split_launches(other, path_counts[phase], rolls,
+                                 path_counts["prove"])
         if args.profile:
             phase_profile(other, assignments, rs, secs, phase)
         del other
@@ -1254,16 +1458,17 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "shape")
     # eager_ms: see the module docstring; one_lane_ms: a chain kernel with one
-    # lane a point; nonzero_digits, row_nonzero_q, n_add: what a
-    # data-dependent bound was computed from; heaviest_bucket, heaviest_at:
+    # lane a point; nonzero_digits, row_nonzero_q, n_madd, n_add: what a
+    # data-dependent bound was computed from; rows_checked: programs held
+    # against the plain version; heaviest_bucket, heaviest_at:
     # the largest bucket of the bucket sums' rows; path: the run whose
     # launches are counted; off_path: checked, on no path's main run
     # serial_mul, us_per_mul: a serial chain's multiplies a thread and its
     # time over them; k1_loop_ms: a Jubjub chain as its former loop of
     # field-kernel launches
     extras = ("eager_ms", "one_lane_ms", "nonzero_digits", "row_nonzero_q",
-              "n_add", "heaviest_bucket", "heaviest_at", "path", "off_path",
-              "serial_mul", "us_per_mul", "k1_loop_ms")
+              "n_madd", "n_add", "heaviest_bucket", "heaviest_at", "rows_checked",
+              "path", "off_path", "serial_mul", "us_per_mul", "k1_loop_ms")
     print(json.dumps({"kernels": [
         {**{k: e[k] for k in keys}, **{k: e[k] for k in extras if k in e}}
         for e in entries]}), flush=True)

@@ -8,6 +8,9 @@ and feeds it the same inputs as the plain versions: field ops and point
 add/double/mixed-add word for word, ``window_totals`` (each row's threads
 stepped through in order and summed as the kernel sums them) after
 ``normalize``, ``column_scan`` (every lane stepped through) word for word,
+the two kernels of ``split_tail_kernel.cu`` (the lane pass lane by lane,
+word for word; the tail's threads phase by phase and level by level, after
+``normalize``),
 the bucket sums of ``hs_kernel.cu`` (each row's threads stepped through
 phase by phase: fill, slices, merge of the slices' edge pieces) after
 ``normalize``, the chain programs of ``group_program.cuh`` (the ladder, the
@@ -474,3 +477,45 @@ def test_chain_fold_one_lane(host_bin, name):
     got = _run(host_bin, text)
     assert got == [_hex(pl).split() for pl in cuda_ec._planes(F, want)]
     assert tg.to_affine_host(want)[3] is None
+
+
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_split_lanes(host_bin, name):
+    """split_tail_kernel.cu's lane pass stepped through lane by lane on the
+    rows of test_torch_split_kernels.py at N = 2048 and 4096 (random signed
+    digits with P = Q and P = -Q inside a lane, an all-zero row, a one-key
+    row, a non-zero count ending inside a lane, a zero-heavy row): the lane
+    totals and slots of split_lanes_plain, word for word."""
+    from test_torch_split_kernels import NB, split_plain, split_rows
+
+    for n in (2048, 4096):
+        c = split_rows(name, n)
+        M = c["sd"].shape[0]
+        text = f"sl {int(name == 'g2')} {n} {M} {NB}\n"
+        text += "\n".join(_hex(pl) for pl in cuda_ec._planes(c["F"], c["tp"])) + "\n"
+        text += " ".join(map(str, c["sd"].reshape(-1).tolist())) + "\n"
+        text += " ".join(map(str, c["od"].reshape(-1).tolist())) + "\n"
+        lanes, slots, _ = split_plain(name, n)
+        want = cuda_ec._planes(c["F"], lanes) + cuda_ec._planes(c["F"], slots)
+        assert _run(host_bin, text) == [_hex(pl).split() for pl in want]
+
+
+@pytest.mark.parametrize("T", [1, 4, 32, 128])
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_split_tail_threads(host_bin, name, T):
+    """split_tail_kernel.cu's tail stepped through with T threads a program
+    (from one thread for all lanes to more threads than lanes), on the lane
+    pass of the rows of test_torch_split_kernels.py at N = 2048 and 4096,
+    against split_tail_plain after normalisation."""
+    from test_torch_split_kernels import NB, split_plain, split_rows
+
+    for n in (2048, 4096):
+        c = split_rows(name, n)
+        M = c["sd"].shape[0]
+        lanes, slots, want = split_plain(name, n)
+        text = f"st {int(name == 'g2')} {n} {M} {NB} {T}\n"
+        text += "\n".join(_hex(pl) for pl in cuda_ec._planes(c["F"], lanes)) + "\n"
+        text += "\n".join(_hex(pl) for pl in cuda_ec._planes(c["F"], slots)) + "\n"
+        text += " ".join(map(str, c["sd"].reshape(-1).tolist())) + "\n"
+        got = _outs(name, _run(host_bin, text), (M,))
+        assert c["tg"].to_affine_host(got) == want

@@ -1,6 +1,6 @@
 // Host build of the port's CUDA device code (zerochain_tpu_torch/csrc): the
-// headers, the per-thread steps of totals_kernel.cu, column_scan_kernel.cu
-// and the bucket sums of hs_kernel.cu, the one-lane chain programs of
+// headers, the per-thread steps of totals_kernel.cu, column_scan_kernel.cu,
+// split_tail_kernel.cu and the bucket sums of hs_kernel.cu, the one-lane chain programs of
 // group_program.cuh, the Fermat inverse of ff_kernels.cu and the per-lane
 // Jubjub chains of jubjub_kernels.cu compile as plain C++,
 // so their arithmetic can be held against the plain PyTorch versions where
@@ -15,6 +15,8 @@
 //   hor g2 nw c count  planes        -> the Horner combine, one line a plane
 //   fold g2 nb count  planes         -> the bucket fold, one line a plane
 //   bs g2 N M nb T  planes keys order -> the bucket sums, one line a plane
+//   sl g2 N M nb  planes digits order -> the lane pass: lane totals, then slots, one line a plane
+//   st g2 N M nb T  lanes slots digits -> the split tail, one line a plane
 //   fqi|fri|fsi a                    -> a^(p-2)                        (hex words)
 //   jj        p q                    -> jj_add, jj_double(p), jj_add in place
 //   jvar n_bits lanes  bx by bits    -> cur, then res, one line each
@@ -24,7 +26,9 @@
 // the row for its non-zero count, R non-zero digits a thread at least),
 // their locals summed as the kernel sums them (a butterfly over each warp's
 // lanes, then the warps in order).  lad, hor, fold: one lane a group.  bs:
-// T threads a row, each phase (fill, slices, merge) ending in a barrier.
+// T threads a row, each phase (fill, slices, merge) ending in a barrier.  sl:
+// every lane of every program in turn.  st: T threads a program, each phase
+// and each level of the scan and the tree ending in a barrier.
 #include <cstdio>
 #include <cstring>
 #include <vector>
@@ -34,6 +38,7 @@
 #include "group_program.cuh"
 #include "hs_kernel.cu"
 #include "jubjub_kernels.cu"
+#include "split_tail_kernel.cu"
 #include "totals_kernel.cu"
 
 template <int N> static void rd(uint32_t* a) { for (int i = 0; i < N; i++) if (scanf("%x", &a[i]) != 1) a[i] = 0; }
@@ -217,6 +222,52 @@ template <class E> static void bucket_sums(int N, long long M, int nb, int T) {
   print_planes<E>(outs);
 }
 
+template <class E> static void split_lanes(int N, long long M, int nb) {
+  auto planes = read_planes<E>(12 * N);
+  std::vector<std::vector<uint32_t>> lanes(planes.size(), std::vector<uint32_t>(12 * M * ZC_ST_LANES)),
+      slots(planes.size(), std::vector<uint32_t>(12 * M * nb, 0xdeadbeefu));
+  std::vector<int32_t> digits(M * N), order(M * N);
+  for (auto& x : digits) if (scanf("%d", &x) != 1) x = 0;
+  for (auto& x : order) if (scanf("%d", &x) != 1) x = 0;
+  SplitArgs a = {};
+  for (size_t k = 0; k < planes.size(); k++) {
+    a.planes[k] = planes[k].data(); a.lanes[k] = lanes[k].data(); a.slots[k] = slots[k].data();
+  }
+  a.digits = digits.data(); a.order = order.data();
+  a.N = N; a.nb = nb; a.M = M;
+  for (long long m = 0; m < M; m++)
+    for (int vl = 0; vl < ZC_ST_LANES; vl++) sl_lane<E>(a, m, vl);
+  print_planes<E>(lanes);
+  print_planes<E>(slots);
+}
+
+template <class E> static void split_tail(int N, long long M, int nb, int T) {
+  auto lanes = read_planes<E>(12 * M * ZC_ST_LANES);
+  auto slots = read_planes<E>(12 * M * nb);
+  std::vector<std::vector<uint32_t>> outs(lanes.size(), std::vector<uint32_t>(12 * M));
+  std::vector<int32_t> digits(M * N);
+  for (auto& x : digits) if (scanf("%d", &x) != 1) x = 0;
+  int S = 1;
+  while (S < T || S < nb - 1) S <<= 1;
+  std::vector<uint32_t> scratch(M * (2 * S + 2 * nb) * 3 * E::W, 0xdeadbeefu);
+  SplitArgs a = {};
+  for (size_t k = 0; k < lanes.size(); k++) {
+    a.lanes[k] = lanes[k].data(); a.slots[k] = slots[k].data(); a.out[k] = outs[k].data();
+  }
+  a.digits = digits.data(); a.scratch = scratch.data();
+  a.N = N; a.nb = nb; a.S = S; a.M = M;
+  for (long long m = 0; m < M; m++) {
+    const int nnz = st_count(a, m, 1);
+    for (int t = 0; t < T; t++) st_fold<E>(a, m, nnz, t, T);
+    for (int k = 0; (1 << k) < T; k++) for (int t = 0; t < T; t++) st_scan<E>(a, m, k, t);
+    for (int t = 0; t < T; t++) st_picks<E>(a, m, nnz, st_scan_buf(T), t, T);
+    for (int t = 0; t < T; t++) st_buckets<E>(a, m, t, T);
+    for (int h = S >> 1; h >= 1; h >>= 1) for (int t = 0; t < T; t++) st_tree<E>(a, m, h, t, T);
+    st_write<E>(a, m);
+  }
+  print_planes<E>(outs);
+}
+
 template <class E> static void column_scan(long long M, int T) {
   constexpr int NP = 3 * E::W / 12;
   const long long n = M * T * ZC_CS_LANES;
@@ -270,6 +321,14 @@ int main() {
       int g2, N, nb, T; long long M;
       if (scanf("%d %d %lld %d %d", &g2, &N, &M, &nb, &T) != 5) return 2;
       if (g2) bucket_sums<Fq2E>(N, M, nb, T); else bucket_sums<FqE>(N, M, nb, T);
+    } else if (!strcmp(op, "sl")) {
+      int g2, N, nb; long long M;
+      if (scanf("%d %d %lld %d", &g2, &N, &M, &nb) != 4) return 2;
+      if (g2) split_lanes<Fq2E>(N, M, nb); else split_lanes<FqE>(N, M, nb);
+    } else if (!strcmp(op, "st")) {
+      int g2, N, nb, T; long long M;
+      if (scanf("%d %d %lld %d %d", &g2, &N, &M, &nb, &T) != 5) return 2;
+      if (g2) split_tail<Fq2E>(N, M, nb, T); else split_tail<FqE>(N, M, nb, T);
     } else if (!strcmp(op, "cs")) {
       int g2, T; long long M;
       if (scanf("%d %lld %d", &g2, &M, &T) != 3) return 2;

@@ -1,4 +1,5 @@
-"""The suffix-MSM kernels: ``window_totals`` and ``column_scan``.
+"""The suffix-MSM kernels: ``window_totals``, ``split_lanes`` / ``split_tail``
+and ``column_scan``.
 
 For every program m (one window of one proof) it returns
 
@@ -28,7 +29,19 @@ lives at physical ``(i mod T) * 1024 + i div T`` (``logical_to_phys``,
 ``phys_perm``), and the scan runs down the depth axis T of each of the 1024
 lanes with mixed adds, so its input too must have Z in {0, one}.
 ``column_scan_plain`` is its plain version; the two run the same formula in
-the same order and return identical words.
+the same order and return identical words.  The split tail no longer runs it:
+``column_scan`` stays as an op.
+
+``split_lanes`` and ``split_tail`` wrap the two kernels of
+``csrc/split_tail_kernel.cu``, the split tail itself for a chunk of N = D * 1024
+points, one launch each for all programs of the chunk (the counterparts of
+``_column_scan_kernel`` and of the JAX split tail in
+``zerochain_tpu/msm/suffix.py``): the lane pass, each of 1024 lanes of the
+sorted row scanned down its D depths as far as the row's non-zero digits reach,
+with the points taken through ``order``; then the lane offsets, the bucket picks
+and their sum.  Together they return what ``window_totals`` returns.
+``split_lanes_plain`` gives the lane pass's words; ``split_tail_plain`` adds in
+another order than its kernel: compare after ``normalize``.
 """
 
 from __future__ import annotations
@@ -44,7 +57,9 @@ from . import scans
 from .pippenger import first_leaf, tcat, tmap
 
 launches = {"g1_window_totals": 0, "g2_window_totals": 0,
-            "g1_column_scan": 0, "g2_column_scan": 0}
+            "g1_column_scan": 0, "g2_column_scan": 0,
+            "g1_split_lanes": 0, "g2_split_lanes": 0,
+            "g1_split_tail": 0, "g2_split_tail": 0}
 
 
 def reset_launches() -> None:
@@ -61,6 +76,18 @@ def _neg_y_where(F, pts, mask):
 
 
 _PLAIN_SLAB = 1 << 21  # coordinate elements (points x ncomp) per pass
+
+
+def bucket_counts(sorted_digits, nb: int):
+    """(*lead, N) digits, |digit| descending -> (*lead, nb - 1) counts
+    cnt[..., t - 1] = #{i : |d_i| >= t}, by binary search on the ascending
+    magnitudes."""
+    N = sorted_digits.shape[-1]
+    lead = tuple(sorted_digits.shape[:-1])
+    asc = sorted_digits.abs().flip(-1).reshape(-1, N).contiguous()
+    ts = torch.arange(1, nb, dtype=asc.dtype, device=asc.device)
+    pos = torch.searchsorted(asc, ts.expand(asc.shape[0], nb - 1).contiguous())
+    return (N - pos).reshape(*lead, nb - 1)
 
 
 def window_totals_plain(F, points, sorted_digits, order, nb: int):
@@ -85,11 +112,7 @@ def window_totals_plain(F, points, sorted_digits, order, nb: int):
     pts = _neg_y_where(F, pts, sorted_digits < 0)
     pre = scans.prefix_scan(F, pts, add=cuda_ec.add_plain)
 
-    # cnt[t] = #{i : |d_i| >= t} by binary search on ascending magnitudes
-    asc = sorted_digits.abs().flip(-1).reshape(-1, N).contiguous()
-    ts = torch.arange(1, nb, dtype=asc.dtype, device=asc.device)
-    pos = torch.searchsorted(asc, ts.expand(asc.shape[0], nb - 1).contiguous())
-    cnt = (N - pos).reshape(*lead, nb - 1)
+    cnt = bucket_counts(sorted_digits, nb)
     empty = cnt == 0
     pick = (cnt - 1).clamp(min=0)
     picked = tmap(
@@ -128,13 +151,13 @@ def row_threads(nnz: int, min_run: int = MIN_RUN) -> int:
     return 32 if nnz <= per_warp else 64 if nnz <= 2 * per_warp else 128
 
 
-def window_totals(F, points, sorted_digits, order, nb: int):
-    """See the module docstring.  points: leaves (12, N) with Z in {0, one};
-    sorted_digits, order: (*lead, N) int32.  -> Jacobian leaves (12, *lead)."""
+def _checked_planes(F, points, sorted_digits, order):
+    """The point planes of a suffix-MSM kernel's inputs, checked: int32
+    (12, N) planes and int32 digits and order of one shape, all on one
+    device."""
     planes = [t for coord in points for t in F.leaves(coord)]
     dev = planes[0].device
     N = order.shape[-1]
-    lead = tuple(order.shape[:-1])
     if sorted_digits.shape != order.shape:
         raise ValueError("sorted_digits and order differ in shape")
     for t in planes:
@@ -149,6 +172,23 @@ def window_totals(F, points, sorted_digits, order, nb: int):
             raise TypeError("sorted_digits and order must be int32")
         if t.device != dev:
             raise ValueError("digits/order and points on different devices")
+    return planes
+
+
+def _point_of(F, outs):
+    """Output planes in kernel order -> a point's coordinate tuple."""
+    if F.ncomp == 1:
+        return tuple(outs)
+    return tuple((outs[2 * k], outs[2 * k + 1]) for k in range(3))
+
+
+def window_totals(F, points, sorted_digits, order, nb: int):
+    """See the module docstring.  points: leaves (12, N) with Z in {0, one};
+    sorted_digits, order: (*lead, N) int32.  -> Jacobian leaves (12, *lead)."""
+    planes = _checked_planes(F, points, sorted_digits, order)
+    dev = planes[0].device
+    N = order.shape[-1]
+    lead = tuple(order.shape[:-1])
     if dev.type == "cpu":
         return window_totals_plain(F, points, sorted_digits, order, nb)
     if dev.type != "cuda":
@@ -175,10 +215,7 @@ def window_totals(F, points, sorted_digits, order, nb: int):
         launches[("g1" if F.ncomp == 1 else "g2") + "_window_totals"] += 1
         if rc != 0:
             raise RuntimeError(f"window_totals/{F.name}: CUDA error {rc}")
-    outs = [t.reshape(12, *lead) for t in outs]
-    if F.ncomp == 1:
-        return tuple(outs)
-    return tuple((outs[2 * k], outs[2 * k + 1]) for k in range(3))
+    return _point_of(F, [t.reshape(12, *lead) for t in outs])
 
 
 # ---------------------------------------------------------------------
@@ -293,6 +330,214 @@ def column_scan(F, pts_cm):
         launches[("g1" if F.ncomp == 1 else "g2") + "_column_scan"] += 1
         if rc != 0:
             raise RuntimeError(f"column_scan/{F.name}: CUDA error {rc}")
-    if F.ncomp == 1:
-        return tuple(outs)
-    return tuple((outs[2 * k], outs[2 * k + 1]) for k in range(3))
+    return _point_of(F, outs)
+
+
+# ---------------------------------------------------------------------
+# split_lanes, split_tail: the split tail of the suffix MSM, two kernels a chunk
+# ---------------------------------------------------------------------
+# split_tail's threads a program (one CTA a program; the kernel takes any
+# power of two up to 128).  64 puts every program of a chunk on the card at
+# once (8 CTAs a SM at 128 registers a thread); on the H100 it beat 128 and
+# 32 for G1 and tied 32 for G2 (PERF.md, Findings).
+SPLIT_THREADS = 64
+
+
+def _split_check(N: int, nb: int):
+    if N == 0 or N % VL:
+        raise ValueError(f"the split tail needs N a multiple of {VL}, got {N}")
+    if not 2 <= nb <= VL:
+        raise ValueError(f"the split tail needs 2 <= nb <= {VL}, got {nb}")
+
+
+def _pick_slots(sd, nb: int):
+    """(M, N) sorted digits -> (is_pick, pos), both (M, nb): whether some
+    position p has |d_p| = v > |d_p+1| (the pick of buckets t in
+    (|d_p+1|, v]), and that p (clamped to 0 where none)."""
+    M = sd.shape[0]
+    cnt = torch.cat([sd.new_zeros((M, 1)), bucket_counts(sd, nb)], -1)
+    pos = (cnt - 1).clamp(min=0).to(torch.int64)
+    v = torch.arange(nb, device=sd.device)
+    return (cnt > 0) & (sd.abs().gather(-1, pos) == v), pos
+
+
+def split_lanes_plain(F, points, sorted_digits, order, nb: int):
+    """See ``split_lanes``: the sorted points (Y negated where the digit is
+    negative) as 1024 lanes of D = N / 1024 depths, each scanned with
+    ``madd_plain`` and held where the row's digits turn zero, as the
+    kernel's lanes stop there; the kernel's words."""
+    F = F.plain
+    N = order.shape[-1]
+    _split_check(N, nb)
+    lead = tuple(order.shape[:-1])
+    M = order.numel() // N
+    dev = order.device
+    slab = max(1, _PLAIN_SLAB // (N * F.ncomp))
+    if M > slab:  # bound the temporaries: slabs of programs
+        sd2, od2 = sorted_digits.reshape(M, N), order.reshape(M, N)
+        parts = [split_lanes_plain(F, points, sd2[m: m + slab],
+                                   od2[m: m + slab], nb)
+                 for m in range(0, M, slab)]
+        return tuple(tmap(lambda a: a.reshape(12, *lead, a.shape[-1]),
+                          tcat([p[k] for p in parts], 1)) for k in range(2))
+    D = N // VL
+    idx = order.reshape(-1).to(torch.int64)
+    pts = tmap(lambda a: a.index_select(1, idx).reshape(12, M, N), points)
+    sd = sorted_digits.reshape(M, N)
+    pts = _neg_y_where(F, pts, sd < 0)
+    lanes = tmap(lambda a: a.reshape(12, M, VL, D), pts)
+    live = (sd != 0).reshape(M, VL, D)
+    run = W.select(F, live[..., 0], tmap(lambda a: a[..., 0], lanes),
+                   W.identity(F, (M, VL), dev))
+    pre = [run]
+    for t in range(1, D):
+        run = W.select(F, live[..., t],
+                       madd_plain(F, run, tmap(lambda a: a[..., t], lanes)), run)
+        pre.append(run)
+    pre = tmap(lambda a: a.reshape(12, M, N),
+               tcat([tmap(lambda a: a.unsqueeze(-1), r) for r in pre], -1))
+    is_pick, pos = _pick_slots(sd, nb)
+    slots = tmap(lambda a: torch.gather(a, -1, pos.expand(12, M, nb)), pre)
+    slots = W.select(F, ~is_pick, W.identity(F, (M, nb), dev), slots)
+    return (tmap(lambda a: a.reshape(12, *lead, VL), run),
+            tmap(lambda a: a.reshape(12, *lead, nb), slots))
+
+
+def split_tail_plain(F, lanes, slots, sorted_digits, nb: int):
+    """See ``split_tail``: the lane offsets by an exclusive scan of the lane
+    totals (``scans.prefix_scan``, work-efficient at a power-of-two width),
+    each bucket's pick its lane's offset plus its slot, the buckets summed
+    by ``scans.tree_sum_last``; every add ``cuda_ec.add_plain``."""
+    F = F.plain
+    N = sorted_digits.shape[-1]
+    _split_check(N, nb)
+    lead = tuple(sorted_digits.shape[:-1])
+    M = sorted_digits.numel() // N
+    dev = sorted_digits.device
+    lanes = tmap(lambda a: a.reshape(12, M, VL), lanes)
+    slots = tmap(lambda a: a.reshape(12, M, nb), slots)
+    sd = sorted_digits.reshape(M, N)
+    excl = scans._shift_in_identity(
+        F, scans.prefix_scan(F, lanes, add=cuda_ec.add_plain))
+    cnt = bucket_counts(sd, nb)
+    pos = (cnt - 1).clamp(min=0).to(torch.int64)
+    lane = pos // (N // VL)
+    v = sd.abs().gather(-1, pos).to(torch.int64)
+
+    def gather_at(ix):
+        return lambda a: torch.gather(a, -1, ix.expand(12, *ix.shape))
+
+    picked = cuda_ec.add_plain(F, tmap(gather_at(lane), excl),
+                               tmap(gather_at(v), slots))
+    picked = W.select(F, cnt == 0, W.identity(F, tuple(cnt.shape), dev), picked)
+    total = scans.tree_sum_last(F, picked, nb - 1, add=cuda_ec.add_plain)
+    return tmap(lambda a: a.reshape(12, *lead), total)
+
+
+def _st_fn(name):
+    lib = _build.lib("split_tail_kernel")
+    fn = getattr(lib, name)
+    if not getattr(fn, "_typed", False):
+        ptrs = ctypes.POINTER(ctypes.c_void_p)
+        head = [ctypes.c_int, ptrs]
+        if name == "zc_split_lanes":
+            fn.argtypes = head + [ctypes.c_void_p, ctypes.c_void_p, ptrs, ptrs,
+                                  ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                  ctypes.c_void_p]
+        else:
+            fn.argtypes = head + [ptrs, ctypes.c_void_p, ptrs, ctypes.c_void_p,
+                                  ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn._typed = True
+    return fn
+
+
+def _ptrs(planes):
+    return (ctypes.c_void_p * len(planes))(*[t.data_ptr() for t in planes])
+
+
+def split_lanes(F, points, sorted_digits, order, nb: int):
+    """The split tail's lane pass (the counterpart of ``column_scan``).
+    points: leaves (12, N) with Z in {0, one}, N = D * 1024; sorted_digits,
+    order: (*lead, N) int32, |digit| descending and below nb along each row.
+    Lane vl holds the sorted positions vl*D .. vl*D + D - 1 and is scanned
+    down them as far as the row's non-zero digits reach.  -> (lane totals,
+    leaves (12, *lead, 1024), the identity for a lane with no non-zero
+    digit; slots, leaves (12, *lead, nb): slot v the in-lane prefix at the
+    position p with |d_p| = v > |d_p+1|, where there is one, else the
+    identity)."""
+    planes = _checked_planes(F, points, sorted_digits, order)
+    dev = planes[0].device
+    N = order.shape[-1]
+    _split_check(N, nb)
+    lead = tuple(order.shape[:-1])
+    if dev.type == "cpu":
+        return split_lanes_plain(F, points, sorted_digits, order, nb)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+
+    planes = [t.contiguous() for t in planes]
+    sd = sorted_digits.contiguous()
+    od = order.contiguous()
+    M = od.numel() // N
+    lanes = [torch.empty((12, M, VL), dtype=torch.int32, device=dev)
+             for _ in planes]
+    slots = [torch.empty((12, M, nb), dtype=torch.int32, device=dev)
+             for _ in planes]
+    if M:
+        with torch.cuda.device(dev):
+            rc = _st_fn("zc_split_lanes")(
+                int(F.ncomp == 2), _ptrs(planes), sd.data_ptr(), od.data_ptr(),
+                _ptrs(lanes), _ptrs(slots), N, M, nb,
+                torch.cuda.current_stream().cuda_stream)
+        launches[("g1" if F.ncomp == 1 else "g2") + "_split_lanes"] += 1
+        if rc != 0:
+            raise RuntimeError(f"split_lanes/{F.name}: CUDA error {rc}")
+    return (_point_of(F, [t.reshape(12, *lead, VL) for t in lanes]),
+            _point_of(F, [t.reshape(12, *lead, nb) for t in slots]))
+
+
+def split_tail(F, lanes, slots, sorted_digits, nb: int):
+    """The split tail after its lane pass: lanes, slots as ``split_lanes``
+    returns them for sorted_digits (*lead, N) int32.  -> the programs' sums
+    sum_{t=1}^{nb-1} prefix[c_t - 1] (c_t = #{i : |d_i| >= t}), Jacobian
+    leaves (12, *lead): what ``window_totals`` returns for the same digits."""
+    N = sorted_digits.shape[-1]
+    _split_check(N, nb)
+    lead = tuple(sorted_digits.shape[:-1])
+    lp = [t for coord in lanes for t in F.leaves(coord)]
+    sp = [t for coord in slots for t in F.leaves(coord)]
+    dev = sorted_digits.device
+    for t, width in [(t, VL) for t in lp] + [(t, nb) for t in sp]:
+        if t.dtype != torch.int32 or tuple(t.shape) != (12, *lead, width):
+            raise ValueError(f"lanes/slots must be int32 (12, *{lead}, {VL} / "
+                             f"{nb}), got {t.dtype} {tuple(t.shape)}")
+        if t.device != dev:
+            raise ValueError("lanes/slots and digits on different devices")
+    if sorted_digits.dtype != torch.int32:
+        raise TypeError("sorted_digits must be int32")
+    if dev.type == "cpu":
+        return split_tail_plain(F, lanes, slots, sorted_digits, nb)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+
+    lp = [t.contiguous() for t in lp]
+    sp = [t.contiguous() for t in sp]
+    sd = sorted_digits.contiguous()
+    M = sd.numel() // N
+    outs = [torch.empty((12, M), dtype=torch.int32, device=dev) for _ in lp]
+    if M:
+        area = max(SPLIT_THREADS, 1 << (nb - 2).bit_length())  # scan / tree entries
+        # per program: two scan / tree areas, the lane offsets, the picks
+        scratch = torch.empty(M * (2 * area + 2 * nb) * 3 * 12 * F.ncomp,
+                              dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            rc = _st_fn("zc_split_tail")(
+                int(F.ncomp == 2), _ptrs(lp), _ptrs(sp), sd.data_ptr(),
+                _ptrs(outs), scratch.data_ptr(), N, M, nb, SPLIT_THREADS, area,
+                torch.cuda.current_stream().cuda_stream)
+        launches[("g1" if F.ncomp == 1 else "g2") + "_split_tail"] += 1
+        if rc != 0:
+            raise RuntimeError(f"split_tail/{F.name}: CUDA error {rc}")
+    return _point_of(F, [t.reshape(12, *lead) for t in outs])

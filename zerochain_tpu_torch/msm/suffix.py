@@ -10,11 +10,14 @@ scatter and bucket fold.  The sort is a library call (``torch.sort``); the
 scan, the picks and their sum are one kernel (``cuda_scan.window_totals``).
 
 ``tail="split"`` (env ``ZEROCHAIN_MSM_TOTALS=0``, as in the JAX package)
-runs the same sum as the JAX package's split fallback instead: the chunk in
-the column-major layout of ``cuda_scan.column_scan`` (the depth-scan
-kernel), the 1024 lane totals scanned with point adds, the bucket prefixes
-gathered and offset, and a reduction over the buckets; chunks that are not
-a power-of-two multiple of 1024 points take a plain prefix scan and a gather.
+runs the same sum as the JAX package's split fallback instead, in two
+kernel launches a chunk: ``cuda_scan.split_lanes`` takes the sorted row as
+1024 lanes, each scanned down its depths with mixed adds as far as the row's
+non-zero digits reach (P4's depth scan); ``cuda_scan.split_tail`` scans the
+lane totals into lane offsets, picks each bucket's prefix as its lane's
+offset plus its in-lane prefix, and sums the buckets as a tree.  Chunks that
+are not a power-of-two multiple of 1024 points take a plain prefix scan, a
+gather and a reduction over the buckets, composed of point-add launches.
 
 Per-window totals are returned separately so a chunk loop accumulates
 partials per window and the Horner window combine (c doublings per window,
@@ -32,7 +35,7 @@ from ..ec import cuda_ec
 from ..ec import weierstrass as W
 from . import cuda_scan
 from .pippenger import WINDOW_C, tmap
-from .scans import exclusive_scan_last, prefix_scan, scan_reduce_last
+from .scans import prefix_scan, scan_reduce_last
 
 WORD_BITS = 32
 
@@ -98,9 +101,9 @@ class SuffixMsm:
     (Z in {0, one}).  Tensors decide the device; the class holds none.
 
     ``tail`` picks how a chunk's bucket sums are formed: "totals" (one
-    ``window_totals`` launch) or "split" (``column_scan`` and composed
-    point adds); None reads ``ZEROCHAIN_MSM_TOTALS`` ("1", the default:
-    totals; "0": split).  Both give the same points."""
+    ``window_totals`` launch) or "split" (``split_lanes`` + ``split_tail``); None
+    reads ``ZEROCHAIN_MSM_TOTALS`` ("1", the default: totals; "0": split).
+    Both give the same points."""
 
     def __init__(self, field, c: int | None = None, n_bits: int = 255,
                  signed: bool = False, tail: str | None = None):
@@ -162,15 +165,16 @@ class SuffixMsm:
                                        self.nb)
 
     def column_split(self, n: int) -> bool:
-        """Whether the split tail lays a chunk of n points out in columns
-        (and runs ``column_scan``): n a power-of-two multiple of 1024."""
+        """Whether the split tail takes a chunk of n points in 1024 lanes
+        (``split_lanes`` + ``split_tail``): n a power-of-two multiple of
+        1024."""
         VL = cuda_scan.VL
         return n % VL == 0 and n & (n - 1) == 0 and self.nb - 1 <= VL
 
     def column_layout(self, points, sorted_digits, order):
         """The chunk's points sorted per program and laid out column-major
         (``cuda_scan.logical_to_phys``), Y negated where the digit is
-        negative: leaves (12, *lead, N)."""
+        negative: leaves (12, *lead, N), the input of ``column_scan``."""
         N = order.shape[-1]
         lead = tuple(order.shape[:-1])
         perm = cuda_scan.phys_perm(N, order.device)
@@ -187,43 +191,23 @@ class SuffixMsm:
         (*lead, N), |digit| descending -> totals (12, *lead)."""
         F = self.F
         N = order.shape[-1]
-        lead = tuple(order.shape[:-1])
-        VL = cuda_scan.VL
-
-        # cnt[t] = #{i : |d_i| >= t} by binary search on ascending magnitudes
-        mag = sorted_digits.abs() if self.signed else sorted_digits
-        asc = mag.flip(-1).reshape(-1, N).contiguous()
-        ts = torch.arange(1, self.nb, dtype=asc.dtype, device=asc.device)
-        pos = torch.searchsorted(
-            asc, ts.expand(asc.shape[0], self.nb - 1).contiguous())
-        cnt = (N - pos).reshape(*lead, self.nb - 1)
-        idx = (cnt - 1).clamp(min=0)
-        empty = cnt == 0
-
-        def gather_at(ix):
-            return lambda a: torch.gather(a, -1, ix.expand(12, *ix.shape))
-
         if self.column_split(N):
-            pts_cm = self.column_layout(points, sorted_digits, order)
-            t_depth = N // VL
-            pre = cuda_scan.column_scan(F, pts_cm) if t_depth > 1 else pts_cm
-            tot = tmap(lambda a: a[..., (t_depth - 1) * VL:], pre)
-            excl = exclusive_scan_last(F, tot)
-            jphys = ((idx % t_depth) * VL + idx // t_depth).to(torch.int64)
-            vl = (idx // t_depth).to(torch.int64)
-            picked = W.add(F, tmap(gather_at(jphys), pre),
-                           tmap(gather_at(vl), excl))
-        else:
-            pts_s = tmap(lambda a: a.index_select(
-                1, order.reshape(-1).to(torch.int64)).reshape(12, *lead, N),
-                points)
-            if self.signed:
-                pts_s = cuda_scan._neg_y_where(F, pts_s, sorted_digits < 0)
-            pre = prefix_scan(F, pts_s)
-            picked = tmap(gather_at(idx.to(torch.int64)), pre)
-
-        ident = W.identity(F, tuple(empty.shape), empty.device)
-        picked = W.select(F, empty, ident, picked)
+            lanes, slots = cuda_scan.split_lanes(F, points, sorted_digits,
+                                                 order, self.nb)
+            return cuda_scan.split_tail(F, lanes, slots, sorted_digits, self.nb)
+        lead = tuple(order.shape[:-1])
+        cnt = cuda_scan.bucket_counts(sorted_digits, self.nb)
+        idx = (cnt - 1).clamp(min=0).to(torch.int64)
+        pts_s = tmap(lambda a: a.index_select(
+            1, order.reshape(-1).to(torch.int64)).reshape(12, *lead, N),
+            points)
+        if self.signed:
+            pts_s = cuda_scan._neg_y_where(F, pts_s, sorted_digits < 0)
+        pre = prefix_scan(F, pts_s)
+        picked = tmap(lambda a: torch.gather(a, -1, idx.expand(12, *idx.shape)),
+                      pre)
+        ident = W.identity(F, tuple(cnt.shape), cnt.device)
+        picked = W.select(F, cnt == 0, ident, picked)
         return scan_reduce_last(F, picked, self.nb - 1)
 
     def combine(self, totals):

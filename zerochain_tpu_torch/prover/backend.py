@@ -3,8 +3,8 @@
 The counterpart of ``zerochain_tpu/prover_tpu/backend.py``: a drop-in for
 ``groth16.core.MirrorBackend``, so ``generate_parameters`` and
 ``create_proof`` run their MSMs, fixed-base exponentiations and quotient
-NTTs on the card.  The variable-base MSMs are the bucket ``Msm`` (its
-Hillis-Steele levels are the ``hs_add_select`` kernel) above 64 points and
+NTTs on the card.  The variable-base MSMs are the bucket ``Msm`` (one
+``bucket_sums`` and one ``bucket_fold`` launch a chunk) above 64 points and
 double-and-add below.
 
 ``device=None`` means the CUDA device and raises where there is none; only

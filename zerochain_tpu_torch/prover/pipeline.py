@@ -3,8 +3,9 @@
 prove = witness synthesis -> constraint matvec -> NTT quotient -> five
 suffix-sum MSMs -> on-device final assembly (A/B/C from alpha/beta/delta and
 r, s).  ``msm_impl="hs"`` swaps the suffix MSMs for the bucket MSM of
-msm/pippenger.py (Hillis-Steele segmented scans); ``msm_tail="split"`` keeps
-the suffix MSMs with their split tail (msm/suffix.py).  All three give the
+msm/pippenger.py (bucket sums of the sorted digits, then a bucket fold);
+``msm_tail="split"`` keeps the suffix MSMs with their split tail
+(msm/suffix.py).  All three give the
 same proofs.  Everything stays on the device; the only host transfer is one
 batch of normalized proof points.  Mirrors bellman's create_random_proof pipeline
 (SURVEY.md §3.2).
@@ -234,8 +235,9 @@ class ConfidentialProver:
 
     def _msm_chunked_suffix(self, field, pts_chunks, prep_chunks):
         """Suffix-MSM chunk loop over pre-sliced point chunks and digit
-        preps: per chunk one window_totals launch + one accumulate, and the
-        Horner window combine runs ONCE per MSM."""
+        preps: per chunk one window_totals (or, on the split tail, one
+        split_tail) launch + one accumulate, and the Horner window combine
+        runs ONCE per MSM."""
         msm = self.msm_g1 if field is FqOps else self.msm_g2
         acc = None
         for cpts, cprep in zip(pts_chunks, prep_chunks):

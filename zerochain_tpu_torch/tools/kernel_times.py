@@ -1,7 +1,7 @@
 """Time window_totals and the point chains of one checkout of the port.
 
     python3 zerochain_tpu_torch/tools/kernel_times.py [--root DIR] [--tag T]
-        [--prove] [--witness] [--hs] [--no-synthetic] [--no-chains]
+        [--prove] [--witness] [--hs] [--split] [--no-synthetic] [--no-chains]
 
 Imports ``zerochain_tpu_torch`` and ``chip_smoke`` from DIR (default: the
 checkout this file is in), so that two checkouts can be timed in one call on
@@ -28,6 +28,9 @@ generates the ConfidentialTransfer CRS and prints JSON lines:
   ``groth16.core.generate_parameters`` and one ``create_proof`` through
   ``TorchBackend``, its seconds split into the backend's device entry
   points (each ended by a synchronize) and the host's rest;
+- with --split: the suffix MSM's split tail,
+  ``ConfidentialProver(msm_tail="split")`` on the same CRS, timed as --hs
+  times its path;
 - with --witness: the witness stage of that batch alone
   (``confidential_witness`` on the card), one warm call then three timed
   ones, each with its field-kernel (K1) launches by op and, where the
@@ -55,6 +58,7 @@ def main() -> int:
     ap.add_argument("--prove", action="store_true")
     ap.add_argument("--witness", action="store_true")
     ap.add_argument("--hs", action="store_true")
+    ap.add_argument("--split", action="store_true")
     ap.add_argument("--no-synthetic", action="store_true")
     ap.add_argument("--no-chains", action="store_true")
     args = ap.parse_args()
@@ -154,10 +158,7 @@ def main() -> int:
     if args.prove:
         import time
 
-        from zerochain_tpu_torch.mirror.field import R
-
-        rs = [((0xA5A5 + 977 * i) * 0x9E3779B97F4A7C15 % R,
-               (0x5A5A + 613 * i) * 0xC2B2AE3D27D4EB4F % R) for i in range(32)]
+        rs = _rs()
         prover.sync_stages = True
         first = prover.prove(assignments, rs=rs)
         for _ in range(3):
@@ -170,7 +171,10 @@ def main() -> int:
                  same_proofs=[(p.a, p.b, p.c) for p in out]
                  == [(p.a, p.b, p.c) for p in first])
     if args.hs:
-        hs_times(prover, assignments, emit)
+        path_times(prover, assignments, emit, "hs")
+        backend_times(prover, assignments, emit)
+    if args.split:
+        path_times(prover, assignments, emit, "split")
     inputs_host, witness_fn = prover._witness_fns()
     aux, public = witness_fn(**inputs_host(assignments, prover.device))
     preps = prover._digits(*prover._quotient(aux, public))
@@ -206,28 +210,33 @@ def main() -> int:
     return 0
 
 
-def hs_times(prover, assignments, emit):
-    """The bucket MSM path and the host backend of the imported checkout:
-    three timed prove_hs batches, then generate_parameters and one
-    create_proof through TorchBackend."""
+def _rs():
+    from zerochain_tpu_torch.mirror.field import R
+
+    return [((0xA5A5 + 977 * i) * 0x9E3779B97F4A7C15 % R,
+             (0x5A5A + 613 * i) * 0xC2B2AE3D27D4EB4F % R) for i in range(32)]
+
+
+def path_times(prover, assignments, emit, path):
+    """One MSM path of the imported checkout, "hs" (``msm_impl="hs"``) or
+    "split" (``msm_tail="split"``), on the prover's CRS: one warm batch,
+    then three timed ones with their stage times, launches by kernel,
+    torch.roll's calls and the proofs' equality with ``prove``'s."""
     import time
 
     import torch
 
-    import chip_smoke
     from zerochain_tpu_torch.ec import cuda_ec
-    from zerochain_tpu_torch.groth16.core import create_proof, generate_parameters
-    from zerochain_tpu_torch.mirror.field import R
     from zerochain_tpu_torch.msm import cuda_scan
-    from zerochain_tpu_torch.prover import ConfidentialProver, TorchBackend
+    from zerochain_tpu_torch.prover import ConfidentialProver
 
-    rs = [((0xA5A5 + 977 * i) * 0x9E3779B97F4A7C15 % R,
-           (0x5A5A + 613 * i) * 0xC2B2AE3D27D4EB4F % R) for i in range(32)]
+    rs = _rs()
     ref = [(p.a, p.b, p.c) for p in prover.prove(assignments, rs=rs)]
-    hs = ConfidentialProver(None, _device_queries=prover._raw_queries,
-                            _vk=prover.vk, msm_impl="hs")
-    hs.sync_stages = True
-    hs.prove(assignments, rs=rs)
+    opts = {"hs": dict(msm_impl="hs"), "split": dict(msm_tail="split")}[path]
+    other = ConfidentialProver(None, _device_queries=prover._raw_queries,
+                               _vk=prover.vk, **opts)
+    other.sync_stages = True
+    other.prove(assignments, rs=rs)
     real_roll = torch.roll
     for _ in range(3):
         cuda_ec.reset_launches()
@@ -242,18 +251,30 @@ def hs_times(prover, assignments, emit):
         torch.roll = counted_roll
         try:
             t0 = time.perf_counter()
-            out = hs.prove(assignments, rs=rs)
+            out = other.prove(assignments, rs=rs)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
         finally:
             torch.roll = real_roll
         launches = {k: v for m in (cuda_ec, cuda_scan)
                     for k, v in m.launches.items() if v}
-        emit(kernel="prove_hs", seconds=secs, stages=hs.last_timings,
+        emit(kernel=f"prove_{path}", seconds=secs, stages=other.last_timings,
              launches=launches, torch_roll_calls=rolls[0],
              same_proofs=[(p.a, p.b, p.c) for p in out] == ref)
-    del hs
 
+
+def backend_times(prover, assignments, emit):
+    """generate_parameters and one create_proof through TorchBackend."""
+    import time
+
+    import torch
+
+    import chip_smoke
+    from zerochain_tpu_torch.groth16.core import create_proof, generate_parameters
+    from zerochain_tpu_torch.prover import ConfidentialProver, TorchBackend
+
+    rs = _rs()
+    ref = prover.prove(assignments[:1], rs=rs[:1])[0]
     backend = TorchBackend()
     t0 = time.perf_counter()
     params = generate_parameters(ConfidentialProver.CIRCUIT(),
@@ -280,7 +301,7 @@ def hs_times(prover, assignments, emit):
     emit(kernel="backend", generate_parameters_seconds=gen_s,
          create_proof_seconds=secs, backend_seconds=spent,
          host_seconds=secs - sum(spent.values()),
-         same_proof=(proof.a, proof.b, proof.c) == ref[0])
+         same_proof=(proof.a, proof.b, proof.c) == (ref.a, ref.b, ref.c))
 
 
 if __name__ == "__main__":
