@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port end to end on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # the full run (ConfidentialTransfer, B = 32)
-    python3 chip_smoke.py --mini     # the same phases on the MiniCommit fixture
+    python3 chip_smoke.py              # the full run (ConfidentialTransfer, then
+                                       # AnonymousTransfer, B = 32 each)
+    python3 chip_smoke.py --mini       # the confidential phases on the MiniCommit
+                                       # fixture (no anonymous phases)
+    python3 chip_smoke.py --anon-only  # the build and the anonymous phases alone
 
 Phases, each printing one JSON line when it ends; any failure raises and the
 run exits non-zero (there is no CPU fallback):
@@ -47,6 +50,28 @@ run exits non-zero (there is no CPU fallback):
   verify   the host pairing verifier accepts sampled proofs of every path and
            rejects a tampered public input
 
+Then the same for AnonymousTransfer (50,514 constraints, d = 65,536), after
+the confidential prover is freed, on the CRS of bench.py's anonymous toxic
+values and bench_assignments(32):
+
+  anon_crs      AnonymousProver.from_toxic_waste on the card
+  anon_witness  the batch's anonymous witness against the CPU's (proofs 0
+                and 31), its launches: one var_chain (14 chains a proof) and
+                three fixed_chain (the fixed-base chains, then the folds in
+                two groups)
+  anon_kernels  the kernels at the anonymous shapes, against their plain
+                versions: ff.inv at the var chain's normalisation, the var
+                chain on the batch's 14 bases and bits, the two fold groups,
+                and window_totals, split_lanes / split_tail and bucket_sums
+                on the real digits of the G1 chunk and the G2 chunk that
+                hold the batch's heaviest bucket
+  anon_prove, anon_prove_hs, anon_prove_split
+                as prove, prove_hs, prove_split, with the same checks; the
+                three give the same proofs
+  anon_verify   the host verifier accepts proofs 0 and 31 of anon_prove and
+                one of each other path, with 104 public inputs, and rejects
+                a tampered input
+
 Then one line {"kernels": [...]} (per kernel: launches on the main path, error
 against the plain version, time, the plain version's time, the card's bound),
 the card's name and power limit, and last {"ok": true, "device": {...}}.
@@ -61,8 +86,9 @@ words, window_totals, bucket_sums and split_tail (which add in another order
 than their plain versions) after normalisation to affine coordinates.  Each
 kernel's launches are counted in the timed run of the path that uses it:
 prove for K1-K3, the inverse and the Jubjub chains, prove_hs for bucket_sums
-and the bucket fold, prove_split for split_lanes and split_tail;
-hs_add_select and column_scan are checked but on no path.
+and the bucket fold, prove_split for split_lanes and split_tail, and the
+anon_ runs for the entries at the anonymous shapes; hs_add_select and
+column_scan are checked but on no path.
 """
 
 from __future__ import annotations
@@ -94,6 +120,14 @@ TOXIC = dict(tau=0x1234567890ABCDEF1234, alpha=0x9876543210FEDCBA,
              beta=0x1111111122222222, gamma=0x3333333344444444,
              delta=0x5555555566666666)
 MINI_TOXIC = dict(tau=424242, alpha=111, beta=222, gamma=333, delta=444)
+# bench.py's AnonymousTransfer CRS
+ANON_TOXIC = dict(tau=0xA11CE, alpha=0xB0B, beta=0xCA51, gamma=0xD00D,
+                  delta=0xE66)
+# the witness stage's chain launches: one var_chain and one fixed_chain a
+# group (the anonymous folds are two more fixed_chain groups)
+CHAIN_LAUNCHES = {"mini": {"var_chain": 0, "fixed_chain": 1},
+                  "confidential": {"var_chain": 1, "fixed_chain": 1},
+                  "anonymous": {"var_chain": 1, "fixed_chain": 3}}
 
 
 def emit(phase: str, **kw) -> None:
@@ -466,35 +500,14 @@ def witness_entries(prover, B, gen, assignments):
     multiplies of one thread, the latency reading of a serial chain."""
     from zerochain_tpu_torch.ec import cuda_jubjub
     from zerochain_tpu_torch.ec import jubjub as ej
-    from zerochain_tpu_torch.ff import cuda_ff
     from zerochain_tpu_torch.ff import limbs as L
     from zerochain_tpu_torch.prover import witness as wit
 
-    out = []
     n_bits = 252
-    for spec, shape, off in ((L.FR, (n_bits * 5 * B,), False),
-                             (L.FQ, (max(B, 3),), False),
-                             (L.FS, (n_bits * 5 * B,), True)):
-        a = random_elements(spec, shape, gen)
-        flat = a.reshape(spec.n, -1)
-        flat[:, 5::97] = 0                            # planted zeros
-        flat[:, 6::89] = spec.array([spec.r_mod_p], "cuda")  # Montgomery ones
-        got = cuda_ff.inv(spec, a)
-        cuda_ff.inv_plain(spec, a)  # warm: the plain version caches its constants
-        want, plain_ms = timed(lambda: cuda_ff.inv_plain(spec, a))
-        err = max_abs_err([got], [want])
-        count = flat.shape[1]
-        muls = fermat_muls(spec)
-        bnd, by = bound_ms(2 * spec.n * 4 * count,
-                           muls * (2 * spec.n ** 2 + spec.n) * count)
-        ms = time_ms(lambda: cuda_ff.inv(spec, a), 3)
-        out.append(dict(
-            name=f"ff.inv.{spec.name}", route="cuda",
-            source="zerochain_tpu_torch/csrc/ff_kernels.cu", replaces=TPU_FF,
-            counter=("ff", f"inv.{spec.name}"), off_path=off,
-            shape=[spec.n, *shape], equal=err == 0, max_abs_err=err, ms=ms,
-            serial_mul=muls, us_per_mul=ms * 1e3 / muls, plain_ms=plain_ms,
-            bound_ms=bnd, bound_by=by, library_ms=None))
+    out = [inv_entry(spec, shape, gen, off)
+           for spec, shape, off in ((L.FR, (n_bits * 5 * B,), False),
+                                    (L.FQ, (max(B, 3),), False),
+                                    (L.FS, (n_bits * 5 * B,), True))]
 
     # variable-base chains: the batch's own Jubjub points as bases (those of
     # the ConfidentialTransfer batch under --mini, whose MiniCommit witness
@@ -540,7 +553,35 @@ def witness_entries(prover, B, gen, assignments):
     return out
 
 
-def jubjub_entry(name, shape, kern, plain, k1_loop, n_bytes, serial, lanes):
+def inv_entry(spec, shape, gen, off_path, tag=""):
+    """ff.inv on random elements of ``shape`` with zeros and Montgomery ones
+    planted, word for word against inv_plain."""
+    from zerochain_tpu_torch.ff import cuda_ff
+
+    a = random_elements(spec, shape, gen)
+    flat = a.reshape(spec.n, -1)
+    flat[:, 5::97] = 0                            # planted zeros
+    flat[:, 6::89] = spec.array([spec.r_mod_p], "cuda")  # Montgomery ones
+    got = cuda_ff.inv(spec, a)
+    cuda_ff.inv_plain(spec, a)  # warm: the plain version caches its constants
+    want, plain_ms = timed(lambda: cuda_ff.inv_plain(spec, a))
+    err = max_abs_err([got], [want])
+    count = flat.shape[1]
+    muls = fermat_muls(spec)
+    bnd, by = bound_ms(2 * spec.n * 4 * count,
+                       muls * (2 * spec.n ** 2 + spec.n) * count)
+    ms = time_ms(lambda: cuda_ff.inv(spec, a), 3)
+    return dict(
+        name=f"ff.inv.{spec.name}{tag}", route="cuda",
+        source="zerochain_tpu_torch/csrc/ff_kernels.cu", replaces=TPU_FF,
+        counter=("ff", f"inv.{spec.name}"), off_path=off_path,
+        shape=[spec.n, *shape], equal=err == 0, max_abs_err=err, ms=ms,
+        serial_mul=muls, us_per_mul=ms * 1e3 / muls, plain_ms=plain_ms,
+        bound_ms=bnd, bound_by=by, library_ms=None)
+
+
+def jubjub_entry(name, shape, kern, plain, k1_loop, n_bytes, serial, lanes,
+                 counter=None):
     """A Jubjub chain kernel against its plain version and its former loop
     of field-kernel launches, word for word."""
     leaves = lambda r: list(r) if isinstance(r, tuple) else [r]  # noqa: E731
@@ -553,23 +594,24 @@ def jubjub_entry(name, shape, kern, plain, k1_loop, n_bytes, serial, lanes):
     return dict(
         name=f"jubjub.{name}", route="cuda",
         source="zerochain_tpu_torch/csrc/jubjub_kernels.cu", replaces=TPU_FF,
-        counter=("jj", name), shape=shape, equal=err == 0, max_abs_err=err,
+        counter=("jj", counter or name), shape=shape, equal=err == 0,
+        max_abs_err=err,
         ms=ms, serial_mul=serial, us_per_mul=ms * 1e3 / serial,
         k1_loop_ms=k1_loop_ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
         library_ms=None)
 
 
-def phase_witness(prover, assignments, B, mini):
+def phase_witness(prover, assignments, B, expected_chains, phase="witness"):
     """The batch's witness on the card, launches counted around it, against
-    the CPU plain path's for the first and the last proof, word for word."""
+    the CPU plain path's for the first and the last proof, word for word;
+    the chain launches must be expected_chains."""
     from zerochain_tpu_torch.ec import cuda_ec, cuda_jubjub
     from zerochain_tpu_torch.ff import cuda_ff
     from zerochain_tpu_torch.msm import cuda_scan
 
     inputs_host, witness_fn = prover._witness_fns()
     witness_fn(**inputs_host(assignments, prover.device))  # warm
-    for mod in (cuda_ff, cuda_ec, cuda_scan, cuda_jubjub):
-        mod.reset_launches()
+    reset_counters()
     torch.cuda.synchronize()
     t0 = time.time()
     aux, public = witness_fn(**inputs_host(assignments, prover.device))
@@ -585,15 +627,15 @@ def phase_witness(prover, assignments, B, mini):
     equal = (torch.equal(aux[:, :, picks].cpu(), caux)
              and torch.equal(public[:, :, picks].cpu(), cpub))
     k1 = sum(ff.values())
-    emit("witness", batch=B, seconds=secs, cpu_seconds_two_proofs=cpu_s,
+    emit(phase, batch=B, seconds=secs, cpu_seconds_two_proofs=cpu_s,
          aux=list(aux.shape), k1_launches=k1,
          k1_launches_inv=sum(v for k, v in ff.items() if k.startswith("inv.")),
          k1_by_op=ff, jubjub_launches=jj, other_launches=others,
          equal_to_cpu=equal, proofs_checked=picks)
     if not equal:
-        raise SystemExit("witness: the card's aux/public differ from the CPU's")
-    if jj != {"var_chain": int(not mini), "fixed_chain": 1}:
-        raise SystemExit(f"witness: chain launches {jj}, expected one a group")
+        raise SystemExit(f"{phase}: the card's aux/public differ from the CPU's")
+    if jj != expected_chains:
+        raise SystemExit(f"{phase}: chain launches {jj}, expected {expected_chains}")
     return k1
 
 
@@ -1243,16 +1285,360 @@ def assignments_for(n, mini):
     return out
 
 
+def anon_witness_entries(prover, B, gen, assignments):
+    """The anonymous witness stage's kernels at its shapes, on the batch's
+    own inputs: ff.inv (Fr) at the var chain's normalisation, 252 steps x
+    14 chains x B; the variable-base chains on the 14 bases (12 enc keys,
+    cr_minus_d, g_epoch) and bits (randomness for 12, dec_key for 2) a
+    proof; the two fold groups (5 folds, then 2, of 12 members behind the
+    identity window), each against its plain version and its former loop of
+    field-kernel launches (k1_loop_ms)."""
+    from zerochain_tpu_torch.ec import cuda_jubjub
+    from zerochain_tpu_torch.ec import jubjub as ej
+    from zerochain_tpu_torch.ff import limbs as L
+    from zerochain_tpu_torch.prover import witness_anon as wa
+
+    c = wa.anonymous_chains(**wa.witness_inputs_host(assignments,
+                                                     prover.device))
+    n_bits, n_chains = c["vm_bits"].shape[:2]
+    out = [inv_entry(L.FR, (n_bits * n_chains * B,), gen, False, ".anon")]
+    bases, bits = c["vm_bases"], c["vm_bits"]
+    lanes = n_chains * B
+    out.append(jubjub_entry(
+        "var_chain.anon", [8, n_bits, n_chains, B],
+        lambda: cuda_jubjub.var_chain(bases, bits),
+        lambda: cuda_jubjub.var_chain_plain(bases, bits),
+        lambda: cuda_jubjub.var_chain_plain(bases, bits, ej.KERNEL_OPS),
+        n_bytes=2 * 8 * 4 * lanes + n_bits * lanes + 2 * 3 * 8 * 4 * n_bits * lanes,
+        serial=1 + n_bits * 9 + (n_bits - 1) * 8, lanes=lanes,
+        counter="var_chain"))
+    for tag in ("pre", "post"):
+        _, lx, ly = wa.fold_windows(c[tag])
+        n_win, nc = lx.shape[1:3]
+        lanes = nc * B
+        out.append(jubjub_entry(
+            f"fixed_chain.fold_{tag}", [8, n_win, nc, B],
+            lambda lx=lx, ly=ly: cuda_jubjub.fixed_chain(lx, ly),
+            lambda lx=lx, ly=ly: cuda_jubjub.fixed_chain_plain(lx, ly),
+            lambda lx=lx, ly=ly: cuda_jubjub.fixed_chain_plain(lx, ly, ej.KERNEL_OPS),
+            n_bytes=2 * 8 * 4 * n_win * lanes + 3 * 8 * 4 * (n_win - 1) * lanes,
+            serial=1 + (n_win - 1) * 10, lanes=lanes, counter="fixed_chain"))
+    for e in out:
+        e["path"] = "anon_prove"
+    return out
+
+
+def heaviest_bucket(keys, nb):
+    """The largest bucket (digit 0 aside) of any row of sorted keys."""
+    cnt = torch.zeros((keys.shape[0], nb), dtype=torch.int64, device=keys.device)
+    cnt.scatter_add_(1, keys.to(torch.int64), torch.ones_like(keys, dtype=torch.int64))
+    return int(cnt[:, 1:].max())
+
+
+def anon_msm_entries(prover, B, assignments):
+    """The MSM kernels on the anonymous batch's real digits: of all chunks,
+    the G1 chunk and the G2 (B2) chunk that hold the batch's heaviest
+    bucket on the hs path; window_totals (programs of the first 4 proofs),
+    split_lanes / split_tail and bucket_sums (the programs and rows of
+    proofs 0 and B - 1, and the heaviest bucket's row), each against its
+    plain version.  heaviest_bucket_g1 / _g2 name the largest bucket over
+    every chunk of the batch."""
+    from zerochain_tpu_torch.ec.fields import FqOps, Fq2Ops
+    from zerochain_tpu_torch.msm import pippenger as pip
+
+    dev = prover.device
+    inputs_host, witness_fn = prover._witness_fns()
+    wm, hs = prover._quotient(*witness_fn(**inputs_host(assignments, dev)))
+    bits = dict(zip(("a", "b1", "b2", "l", "h"), prover._bits(wm, hs)))
+    preps = dict(zip(("a", "b1", "b2", "l", "h"), prover._digits(wm, hs)))
+    del wm, hs
+    hs_msm = pip.Msm(FqOps)
+    nb_hs = 1 << hs_msm.c
+    nw, nb = prover.msm_g1.n_windows, prover.msm_g1.nb
+    check = torch.tensor([w * B + b for w in range(nw) for b in (0, B - 1)],
+                         device=dev)
+    out = []
+    for F, queries, tag in ((FqOps, ("a", "b1", "l", "h"), "g1"),
+                            (Fq2Ops, ("b2",), "g2")):
+        best = (-1, None)
+        for q in queries:
+            off = 0
+            for k, ch in enumerate(getattr(prover, f"{q}_chunks")):
+                n = pip.first_leaf(ch).shape[-1]
+                rows = hs_msm.rows(bits[q][:, off: off + n])
+                top = heaviest_bucket(rows[0], nb_hs)
+                if top > best[0]:
+                    best = (top, (q, k, off, n))
+                off += n
+                del rows
+        q, k, off, n = best[1]
+        chunk = getattr(prover, f"{q}_chunks")[k]
+        prep = preps[q][k]
+        rows = hs_msm.rows(bits[q][:, off: off + n])
+        got = [totals_entry(F, prover.msm_g1 if tag == "g1" else prover.msm_g2,
+                            [chunk], [prep], f"{tag}.anon", proofs=4)]
+        got[0]["path"] = "anon_prove"
+        for e in split_entry(F, [(chunk, prep)], nb, f"{tag}.anon", check, False):
+            e["path"] = "anon_prove_split"
+            got.append(e)
+        e = bucket_sums_entry(F, [(chunk, rows)], nb_hs, f"{tag}.anon", check, B)
+        e["path"] = "anon_prove_hs"
+        got.append(e)
+        for e in got:
+            e["chunk"] = f"{q}[{k}]"
+            e[f"heaviest_bucket_{tag}"] = best[0]
+        out += got
+        del rows
+    return out
+
+
+def reset_counters():
+    """Zero every kernel wrapper's launch count."""
+    from zerochain_tpu_torch.ec import cuda_ec, cuda_jubjub
+    from zerochain_tpu_torch.ff import cuda_ff
+    from zerochain_tpu_torch.msm import cuda_scan
+
+    for mod in (cuda_ff, cuda_ec, cuda_scan, cuda_jubjub):
+        mod.reset_launches()
+
+
+def drive(p, phase, assignments, rs, B, counters):
+    """One warm prove, then a timed one with every launch counter zeroed
+    just before and read just after, and torch.roll's calls counted (the
+    Hillis-Steele levels' rolled copies)."""
+    p.sync_stages = True
+    t0 = time.time()
+    p.prove(assignments, rs=rs)
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    reset_counters()
+    rolls = [0]
+    real_roll = torch.roll
+
+    def counted_roll(*a, **kw):
+        rolls[0] += 1
+        return real_roll(*a, **kw)
+
+    torch.cuda.synchronize()
+    torch.roll = counted_roll
+    try:
+        t0 = time.time()
+        out = p.prove(assignments, rs=rs)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+    finally:
+        torch.roll = real_roll
+    counts = {k: dict(v) for k, v in counters.items()}
+    bucket = {k: n for k, n in counts["ec"].items()
+              if "bucket" in k or "hs_" in k}
+    emit(phase, batch=B, warm_seconds=warm_s, seconds=secs,
+         proofs_per_second=B / secs, stages=p.last_timings,
+         launches=counts, total_launches=sum(
+             n for c in counts.values() for n in c.values()),
+         point_op_launches=point_ops(counts),
+         bucket_msm_launches=bucket, torch_roll_calls=rolls[0])
+    return out, secs, counts, rolls[0]
+
+
+def prove_paths(prover, cls, assignments, rs, B, prefix, profile, counters,
+                path_counts):
+    """The batch through the three MSM paths on one CRS (phases prefix +
+    prove, prove_hs, prove_split), each path's launches checked and its
+    proofs equal to prove's.  -> (prove's proofs, {path: proofs})."""
+    proofs, prove_s, path_counts[prefix + "prove"], _ = drive(
+        prover, prefix + "prove", assignments, rs, B, counters)
+    if profile:
+        phase_profile(prover, assignments, rs, prove_s, prefix + "prove")
+    path_proofs = {}
+    for name, opts in (("prove_hs", dict(msm_impl="hs")),
+                       ("prove_split", dict(msm_tail="split"))):
+        phase = prefix + name
+        other = cls(None, _device_queries=prover._raw_queries, _vk=prover.vk,
+                    **opts)
+        path_proofs[name], secs, path_counts[phase], rolls = drive(
+            other, phase, assignments, rs, B, counters)
+        if name == "prove_hs":
+            check_bucket_launches(prover, path_counts[phase], rolls)
+        else:
+            check_split_launches(other, path_counts[phase], rolls,
+                                 path_counts[prefix + "prove"])
+        if profile:
+            phase_profile(other, assignments, rs, secs, phase)
+        del other
+        if ints_of(path_proofs[name]) != ints_of(proofs):
+            raise SystemExit(f"{phase}: the proofs differ from {prefix}prove's")
+    return proofs, path_proofs
+
+
+def phase_verify(prover, assignments, proofs, others, B, n_public, phase):
+    """The host pairing verifier accepts proofs 0 and B - 1 and the others
+    ({name: (proof, index)}), with n_public public inputs a proof, and
+    rejects a tampered input."""
+    from zerochain_tpu_torch.groth16.core import prepare_verifying_key, verify_proof
+    from zerochain_tpu_torch.mirror.field import R
+
+    t0 = time.time()
+    publics = prover.public_inputs(assignments)
+    if any(len(p) != n_public for p in publics):
+        raise SystemExit(f"{phase}: {len(publics[0])} public inputs, "
+                         f"expected {n_public}")
+    pvk = prepare_verifying_key(prover.vk)
+    picks = [0, B - 1]
+    for b in picks:
+        if not verify_proof(pvk, proofs[b], publics[b]):
+            raise SystemExit(f"{phase}: the verifier rejected proof {b}")
+    for name, (pr, b) in others.items():
+        if not verify_proof(pvk, pr, publics[b]):
+            raise SystemExit(f"{phase}: the verifier rejected {name}'s proof {b}")
+    tampered = list(publics[0])
+    tampered[0] = (tampered[0] + 1) % R
+    if verify_proof(pvk, proofs[0], tampered):
+        raise SystemExit(f"{phase}: the verifier accepted a tampered public input")
+    emit(phase, seconds=time.time() - t0, public_inputs=n_public,
+         accepted=picks, accepted_other_paths={k: b for k, (_, b) in others.items()},
+         tampered_rejected=True)
+
+
+def confidential_phases(mini, profile, gen, counters, path_counts):
+    """Phases crs to verify on ConfidentialTransfer (or MiniCommit with
+    mini); -> the kernels phase's entries."""
+    from zerochain_tpu_torch.groth16.core import create_proof, generate_parameters
+    from zerochain_tpu_torch.mirror.field import R
+    from zerochain_tpu_torch.prover import ConfidentialProver, MiniProver, TorchBackend
+
+    B = 2 if mini else 32
+    t0 = time.time()
+    if mini:
+        import os
+        os.environ["ZEROCHAIN_MSM_CHUNK"] = "256"
+        prover = MiniProver.from_toxic_waste(**MINI_TOXIC, chunk=256,
+                                             chunk_g2=256)
+    else:
+        prover = ConfidentialProver.from_toxic_waste(**TOXIC)
+    torch.cuda.synchronize()
+    emit("crs", seconds=time.time() - t0, constraints=prover.m,
+         domain=prover.d, inputs=prover.num_inputs, aux=prover.num_aux,
+         chunks=dict(a=prover.msm_chunk_a, b=prover.msm_chunk_b,
+                     l=prover.msm_chunk_l, h=prover.msm_chunk_h))
+
+    assignments = assignments_for(B, mini)
+    phase_witness(prover, assignments, B,
+                  CHAIN_LAUNCHES["mini" if mini else "confidential"])
+    t0 = time.time()
+    entries = phase_kernels(prover, B, gen, assignments)
+    emit("kernels", seconds=time.time() - t0,
+         all_equal=all(e["equal"] for e in entries),
+         kernels=[{k: e[k] for k in ("name", "shape", "equal", "ms",
+                                     "eager_ms", "plain_ms") if k in e}
+                  for e in entries])
+    bad = [e["name"] for e in entries if not e["equal"]]
+    if bad:
+        raise SystemExit(f"kernels disagree with their plain versions: {bad}")
+
+    # ---- the main path: prove one batch, and the other MSM paths -------
+    rs = [((0xA5A5 + 977 * i) * 0x9E3779B97F4A7C15 % R,
+           (0x5A5A + 613 * i) * 0xC2B2AE3D27D4EB4F % R) for i in range(B)]
+    cls = MiniProver if mini else ConfidentialProver
+    proofs, path_proofs = prove_paths(prover, cls, assignments, rs, B, "",
+                                      profile, counters, path_counts)
+
+    # ---- groth16.core through the card's backend ----------------------
+    t0 = time.time()
+    backend = TorchBackend()
+    params = generate_parameters(cls.CIRCUIT(),
+                                 **(MINI_TOXIC if mini else TOXIC),
+                                 backend=backend)
+    gen_s = time.time() - t0
+    if params.vk != prover.vk:
+        raise SystemExit("backend: generate_parameters gave another verifying key")
+    reset_counters()
+    in_backend = timed_backend(backend)
+    t0 = time.time()
+    backend_proof = create_proof(prover.circuit_for(assignments[0]), params,
+                                 *rs[0], backend=backend)
+    torch.cuda.synchronize()
+    proof_s = time.time() - t0
+    counts = {k: dict(v) for k, v in counters.items()}
+    if ints_of([backend_proof]) != ints_of(proofs[:1]):
+        raise SystemExit("backend: create_proof differs from prove's proof 0")
+    emit("backend", generate_parameters_seconds=gen_s,
+         create_proof_seconds=proof_s, vk_equal=True, proof_equal=True,
+         create_proof_backend_seconds=in_backend,
+         create_proof_host_seconds=proof_s - sum(in_backend.values()),
+         launches=counts)
+    if profile:
+        profile_create_proof(create_proof, prover.circuit_for(assignments[0]),
+                             params, rs[0], backend, proof_s)
+    del params
+
+    # ---- verify on the host ------------------------------------------
+    phase_verify(prover, assignments, proofs,
+                 {"prove_hs": (path_proofs["prove_hs"][1], 1),
+                  "prove_split": (path_proofs["prove_split"][B - 2], B - 2),
+                  "backend": (backend_proof, 0)},
+                 B, prover.num_inputs - 1, "verify")
+    return entries
+
+
+def anonymous_phases(profile, gen, counters, path_counts):
+    """The anon_ phases on AnonymousTransfer; -> the anon_kernels phase's
+    entries."""
+    from zerochain_tpu_torch.prover import AnonymousProver
+    from zerochain_tpu_torch.prover import witness_anon as wa
+
+    B = 32
+    t0 = time.time()
+    prover = AnonymousProver.from_toxic_waste(**ANON_TOXIC)
+    torch.cuda.synchronize()
+    emit("anon_crs", seconds=time.time() - t0, constraints=prover.m,
+         domain=prover.d, inputs=prover.num_inputs, aux=prover.num_aux,
+         dense=dict(a=len(prover.a_cols), b=len(prover.b_cols)),
+         chunks=dict(a=prover.msm_chunk_a, b=prover.msm_chunk_b,
+                     l=prover.msm_chunk_l, h=prover.msm_chunk_h),
+         n_chunks={q: len(getattr(prover, f"{q}_chunks"))
+                   for q in ("a", "b1", "b2", "l", "h")})
+
+    assignments = wa.bench_assignments(B)
+    phase_witness(prover, assignments, B, CHAIN_LAUNCHES["anonymous"],
+                  "anon_witness")
+    t0 = time.time()
+    entries = (anon_witness_entries(prover, B, gen, assignments)
+               + anon_msm_entries(prover, B, assignments))
+    emit("anon_kernels", seconds=time.time() - t0,
+         all_equal=all(e["equal"] for e in entries),
+         kernels=[{k: e[k] for k in ("name", "shape", "equal", "ms", "plain_ms",
+                                     "chunk", "heaviest_bucket") if k in e}
+                  for e in entries])
+    bad = [e["name"] for e in entries if not e["equal"]]
+    if bad:
+        raise SystemExit(f"anon_kernels disagree with their plain versions: {bad}")
+
+    rs = [(3 + i, 5 + i) for i in range(B)]
+    proofs, path_proofs = prove_paths(prover, AnonymousProver, assignments, rs,
+                                      B, "anon_", profile, counters, path_counts)
+    phase_verify(prover, assignments, proofs,
+                 {"prove_hs": (path_proofs["prove_hs"][1], 1),
+                  "prove_split": (path_proofs["prove_split"][B - 2], B - 2)},
+                 B, prover.num_inputs - 1, "anon_verify")
+    return entries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--mini", action="store_true",
                     help="drive the MiniCommit fixture instead of the "
-                         "ConfidentialTransfer circuit (a quick check)")
+                         "ConfidentialTransfer circuit, and skip the "
+                         "AnonymousTransfer phases (a quick check)")
+    ap.add_argument("--anon-only", action="store_true",
+                    help="run the build and the AnonymousTransfer phases "
+                         "alone")
     ap.add_argument("--profile", action="store_true",
                     help="after each path's timed run, prove once more "
                          "under torch.profiler and print the card's idle "
                          "share")
     args = ap.parse_args()
+    if args.mini and args.anon_only:
+        ap.error("--mini and --anon-only exclude each other")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script only runs on the GPU",
@@ -1262,12 +1648,7 @@ def main() -> int:
     from zerochain_tpu_torch import _build
     from zerochain_tpu_torch.ec import cuda_ec, cuda_jubjub
     from zerochain_tpu_torch.ff import cuda_ff
-    from zerochain_tpu_torch.groth16.core import (
-        create_proof, generate_parameters, prepare_verifying_key, verify_proof)
-    from zerochain_tpu_torch.mirror.field import R
     from zerochain_tpu_torch.msm import cuda_scan
-    from zerochain_tpu_torch.prover import (
-        ConfidentialProver, MiniProver, TorchBackend)
 
     t_run = time.time()
     card = card_line()
@@ -1296,133 +1677,16 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    B = 2 if args.mini else 32
-
-    t0 = time.time()
-    if args.mini:
-        import os
-        os.environ["ZEROCHAIN_MSM_CHUNK"] = "256"
-        prover = MiniProver.from_toxic_waste(**MINI_TOXIC, chunk=256,
-                                             chunk_g2=256)
-    else:
-        prover = ConfidentialProver.from_toxic_waste(**TOXIC)
-    torch.cuda.synchronize()
-    emit("crs", seconds=time.time() - t0, constraints=prover.m,
-         domain=prover.d, inputs=prover.num_inputs, aux=prover.num_aux,
-         chunks=dict(a=prover.msm_chunk_a, b=prover.msm_chunk_b,
-                     l=prover.msm_chunk_l, h=prover.msm_chunk_h))
-
-    assignments = assignments_for(B, args.mini)
-    phase_witness(prover, assignments, B, args.mini)
-    t0 = time.time()
-    entries = phase_kernels(prover, B, gen, assignments)
-    emit("kernels", seconds=time.time() - t0,
-         all_equal=all(e["equal"] for e in entries),
-         kernels=[{k: e[k] for k in ("name", "shape", "equal", "ms",
-                                     "eager_ms", "plain_ms") if k in e}
-                  for e in entries])
-    bad = [e["name"] for e in entries if not e["equal"]]
-    if bad:
-        raise SystemExit(f"kernels disagree with their plain versions: {bad}")
-
-    # ---- the main path: prove one batch ------------------------------
-    rs = [((0xA5A5 + 977 * i) * 0x9E3779B97F4A7C15 % R,
-           (0x5A5A + 613 * i) * 0xC2B2AE3D27D4EB4F % R) for i in range(B)]
     counters = {"ff": cuda_ff.launches, "ec": cuda_ec.launches,
                 "scan": cuda_scan.launches, "jj": cuda_jubjub.launches}
-
-    real_roll = torch.roll
-
-    def drive(p, phase):
-        """One warm prove, then a timed one with every launch counter
-        zeroed just before and read just after, and torch.roll's calls
-        counted (the Hillis-Steele levels' rolled copies)."""
-        p.sync_stages = True
-        t0 = time.time()
-        p.prove(assignments, rs=rs)
-        torch.cuda.synchronize()
-        warm_s = time.time() - t0
-        for mod in (cuda_ff, cuda_ec, cuda_scan, cuda_jubjub):
-            mod.reset_launches()
-        rolls = [0]
-
-        def counted_roll(*a, **kw):
-            rolls[0] += 1
-            return real_roll(*a, **kw)
-
-        torch.cuda.synchronize()
-        torch.roll = counted_roll
-        try:
-            t0 = time.time()
-            out = p.prove(assignments, rs=rs)
-            torch.cuda.synchronize()
-            secs = time.time() - t0
-        finally:
-            torch.roll = real_roll
-        counts = {k: dict(v) for k, v in counters.items()}
-        bucket = {k: n for k, n in counts["ec"].items()
-                  if "bucket" in k or "hs_" in k}
-        emit(phase, batch=B, warm_seconds=warm_s, seconds=secs,
-             proofs_per_second=B / secs, stages=p.last_timings,
-             launches=counts, total_launches=sum(
-                 n for c in counts.values() for n in c.values()),
-             point_op_launches=point_ops(counts),
-             bucket_msm_launches=bucket, torch_roll_calls=rolls[0])
-        return out, secs, counts, rolls[0]
-
-    proofs, prove_s, counts, _ = drive(prover, "prove")
-    path_counts = {"prove": counts}
-    if args.profile:
-        phase_profile(prover, assignments, rs, prove_s, "prove")
-
-    # ---- the other MSM paths, on the same CRS -------------------------
-    cls = MiniProver if args.mini else ConfidentialProver
-    path_proofs = {}
-    for phase, opts in (("prove_hs", dict(msm_impl="hs")),
-                        ("prove_split", dict(msm_tail="split"))):
-        other = cls(None, _device_queries=prover._raw_queries, _vk=prover.vk,
-                    **opts)
-        path_proofs[phase], secs, path_counts[phase], rolls = drive(other, phase)
-        if phase == "prove_hs":
-            check_bucket_launches(prover, path_counts[phase], rolls)
-        else:
-            check_split_launches(other, path_counts[phase], rolls,
-                                 path_counts["prove"])
-        if args.profile:
-            phase_profile(other, assignments, rs, secs, phase)
-        del other
-        if ints_of(path_proofs[phase]) != ints_of(proofs):
-            raise SystemExit(f"{phase}: the proofs differ from prove's")
-
-    # ---- groth16.core through the card's backend ----------------------
-    t0 = time.time()
-    backend = TorchBackend()
-    params = generate_parameters(cls.CIRCUIT(),
-                                 **(MINI_TOXIC if args.mini else TOXIC),
-                                 backend=backend)
-    gen_s = time.time() - t0
-    if params.vk != prover.vk:
-        raise SystemExit("backend: generate_parameters gave another verifying key")
-    for mod in (cuda_ff, cuda_ec, cuda_scan, cuda_jubjub):
-        mod.reset_launches()
-    in_backend = timed_backend(backend)
-    t0 = time.time()
-    backend_proof = create_proof(prover.circuit_for(assignments[0]), params,
-                                 *rs[0], backend=backend)
-    torch.cuda.synchronize()
-    proof_s = time.time() - t0
-    counts = {k: dict(v) for k, v in counters.items()}
-    if ints_of([backend_proof]) != ints_of(proofs[:1]):
-        raise SystemExit("backend: create_proof differs from prove's proof 0")
-    emit("backend", generate_parameters_seconds=gen_s,
-         create_proof_seconds=proof_s, vk_equal=True, proof_equal=True,
-         create_proof_backend_seconds=in_backend,
-         create_proof_host_seconds=proof_s - sum(in_backend.values()),
-         launches=counts)
-    if args.profile:
-        profile_create_proof(create_proof, prover.circuit_for(assignments[0]),
-                             params, rs[0], backend, proof_s)
-    del params
+    path_counts = {}
+    entries = []
+    if not args.anon_only:
+        entries += confidential_phases(args.mini, args.profile, gen, counters,
+                                       path_counts)
+    if not args.mini:
+        torch.cuda.empty_cache()  # the confidential prover is gone
+        entries += anonymous_phases(args.profile, gen, counters, path_counts)
 
     for e in entries:
         grp, key = e.pop("counter")
@@ -1431,28 +1695,6 @@ def main() -> int:
             if not e.get("off_path") and e["launches"] == 0]
     if idle:
         raise SystemExit(f"kernels of the main path never launched: {idle}")
-
-    # ---- verify on the host ------------------------------------------
-    t0 = time.time()
-    publics = prover.public_inputs(assignments)
-    pvk = prepare_verifying_key(prover.vk)
-    picks = [0, B - 1]
-    for b in picks:
-        if not verify_proof(pvk, proofs[b], publics[b]):
-            raise SystemExit(f"the verifier rejected proof {b}")
-    others = {"prove_hs": (path_proofs["prove_hs"][1], 1),
-              "prove_split": (path_proofs["prove_split"][B - 2], B - 2),
-              "backend": (backend_proof, 0)}
-    for name, (pr, b) in others.items():
-        if not verify_proof(pvk, pr, publics[b]):
-            raise SystemExit(f"the verifier rejected {name}'s proof {b}")
-    tampered = list(publics[0])
-    tampered[0] = (tampered[0] + 1) % R
-    if verify_proof(pvk, proofs[0], tampered):
-        raise SystemExit("the verifier accepted a tampered public input")
-    emit("verify", seconds=time.time() - t0, accepted=picks,
-         accepted_other_paths={k: b for k, (_, b) in others.items()},
-         tampered_rejected=True)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -1465,10 +1707,12 @@ def main() -> int:
     # launches are counted; off_path: checked, on no path's main run
     # serial_mul, us_per_mul: a serial chain's multiplies a thread and its
     # time over them; k1_loop_ms: a Jubjub chain as its former loop of
-    # field-kernel launches
+    # field-kernel launches; chunk, heaviest_bucket_g1 / _g2: the anonymous
+    # chunk an entry ran on, and the batch's largest bucket over all chunks
     extras = ("eager_ms", "one_lane_ms", "nonzero_digits", "row_nonzero_q",
               "n_madd", "n_add", "heaviest_bucket", "heaviest_at", "rows_checked",
-              "path", "off_path", "serial_mul", "us_per_mul", "k1_loop_ms")
+              "path", "off_path", "serial_mul", "us_per_mul", "k1_loop_ms",
+              "chunk", "heaviest_bucket_g1", "heaviest_bucket_g2")
     print(json.dumps({"kernels": [
         {**{k: e[k] for k in keys}, **{k: e[k] for k in extras if k in e}}
         for e in entries]}), flush=True)

@@ -53,17 +53,37 @@ def double(p):
     return add(p, p)
 
 
+_D2 = 2 * EDWARDS_D % R
+
+
+def _ext_add(p, q):
+    """The same complete law on extended coordinates (X : Y : Z : T), with
+    no inversion (add-2008-hwcd-3, a = -1)."""
+    x1, y1, z1, t1 = p
+    x2, y2, z2, t2 = q
+    a = (y1 - x1) * (y2 - x2) % R
+    b = (y1 + x1) * (y2 + x2) % R
+    c = t1 * _D2 % R * t2 % R
+    d = 2 * z1 * z2 % R
+    e, f, g, h = b - a, d - c, d + c, b + a
+    return (e * f % R, g * h % R, f * g % R, e * h % R)
+
+
 def mul(p, k: int):
     """Scalar mul by a raw integer (host semantics: repr bits, no reduction;
-    edwards.rs:520-540 double-and-add)."""
-    result = ZERO
-    addend = p
+    edwards.rs:520-540 double-and-add), on extended coordinates with one
+    inversion at the end: the law is complete, so the affine result is the
+    affine loop's."""
+    x, y = p
+    result = (0, 1, 1, 0)
+    addend = (x, y, 1, x * y % R)
     while k:
         if k & 1:
-            result = add(result, addend)
-        addend = double(addend)
+            result = _ext_add(result, addend)
+        addend = _ext_add(addend, addend)
         k >>= 1
-    return result
+    zi = fr_inv(result[2])
+    return (result[0] * zi % R, result[1] * zi % R)
 
 
 def mul_by_cofactor(p):

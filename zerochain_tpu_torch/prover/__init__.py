@@ -2,4 +2,4 @@
 backend (the counterpart of ``zerochain_tpu.prover_tpu``)."""
 
 from .backend import TorchBackend  # noqa: F401
-from .pipeline import ConfidentialProver, MiniProver  # noqa: F401
+from .pipeline import AnonymousProver, ConfidentialProver, MiniProver  # noqa: F401

@@ -1,4 +1,5 @@
-"""End-to-end Groth16 prover for ConfidentialTransfer on one device.
+"""End-to-end Groth16 prover for ConfidentialTransfer (and AnonymousTransfer,
+MiniCommit) on one device.
 
 prove = witness synthesis -> constraint matvec -> NTT quotient -> five
 suffix-sum MSMs -> on-device final assembly (A/B/C from alpha/beta/delta and
@@ -28,6 +29,7 @@ from ..ff import limbs as L
 from ..groth16 import domain as dom
 from ..groth16.core import Parameters, Proof, _pad_input_constraints
 from ..mirror.field import R
+from ..models.anonymous import AnonymousTransfer
 from ..models.confidential import ConfidentialTransfer
 from ..models.mini import MiniCommit
 from ..msm import pippenger as pip
@@ -35,6 +37,7 @@ from ..msm import suffix as smsm
 from ..ntt import plan_for
 from ..r1cs.system import ConstraintSystem
 from . import witness as wit
+from . import witness_anon as wanon
 from . import witness_mini as wmini
 from .matvec import ConstraintMatrices
 
@@ -500,12 +503,43 @@ class ConfidentialProver:
 
     def public_inputs(self, assignments: list[dict]) -> list[list[int]]:
         """The runtime public inputs per proof (without ONE): 22 for
-        confidential (modules/zk-system/src/lib.rs:22-23)."""
+        confidential, 104 for anonymous (modules/zk-system/src/lib.rs:22-23)."""
         inputs_host, witness_fn = self._witness_fns()
         _, public = witness_fn(**inputs_host(assignments, self.device))
         n_pub, B = public.shape[1], public.shape[2]
         vals = FR.to_ints(public, mont=True)  # index j * B + b
         return [[vals[j * B + b] for j in range(1, n_pub)] for b in range(B)]
+
+
+class AnonymousProver(ConfidentialProver):
+    """Groth16 prover for the AnonymousTransfer circuit (50,514 constraints,
+    105 inputs; anonymous_transfer.rs:57): the same pipeline, another
+    circuit and witness."""
+
+    CIRCUIT = AnonymousTransfer
+
+    @staticmethod
+    def _witness_fns():
+        return wanon.witness_inputs_host, wanon.anonymous_witness
+
+    @staticmethod
+    def circuit_for(a: dict) -> AnonymousTransfer:
+        """The circuit object of one assignment dict of ``prove``, with the
+        right ciphertext r * G the dict leaves out (the witness recomputes
+        it)."""
+        from ..protocol.elgamal import Ciphertext
+        from ..protocol.keys import DecryptionKey, EncryptionKey
+
+        ek_sender = EncryptionKey.from_decryption_key(DecryptionKey(a["dec_key"]))
+        right = Ciphertext.encrypt(a["amount"], a["randomness"], ek_sender).right
+        return AnonymousTransfer(
+            amount=a["amount"], remaining_balance=a["remaining_balance"],
+            s_index=a["s_index"], t_index=a["t_index"],
+            randomness=a["randomness"], alpha=a["alpha"],
+            proof_generation_key=a["pgk"], dec_key=a["dec_key"],
+            enc_keys=a["enc_keys"], left_ciphertexts=a["left_ciphertexts"],
+            right_ciphertext=right, enc_balances=a["enc_balances"],
+            g_epoch=a["g_epoch"])
 
 
 class MiniProver(ConfidentialProver):
