@@ -6,6 +6,8 @@
     python3 chip_smoke.py --mini       # the confidential phases on the MiniCommit
                                        # fixture (no anonymous phases)
     python3 chip_smoke.py --anon-only  # the build and the anonymous phases alone
+    python3 chip_smoke.py --verify-only  # the build and the phases reddsa and
+                                         # pairing alone
 
 Phases, each printing one JSON line when it ends; any failure raises and the
 run exits non-zero (there is no CPU fallback):
@@ -72,6 +74,24 @@ values and bench_assignments(32):
                 one of each other path, with 104 public inputs, and rejects
                 a tampered input
 
+Then, after the anonymous phases and also under --mini, the verifier's side:
+
+  reddsa   batch RedJubjub verification (batch_verify_device): the cases of
+           tests/test_redjubjub_batch.py (128 valid signatures, a tampered
+           message, a bad s) against the host loop, the 16-entry total before
+           the cofactor against the mirror's sum; then a block of 4,096
+           signed extrinsics (12,288 chains) in one warm and one timed call,
+           seconds split host / device, one var_chain launch, accepted, and
+           its copy with entry 2,049 tampered rejected
+  reddsa_kernels  the var chain at the block's 12,288 lanes (its first 384
+                  against var_chain_plain) and K1 at the tree's first level
+  pairing  the BLS12-381 pairing over the Fq12 tower: e(G1, G2) and
+           bilinearity against the mirror, a 3-pair Miller loop and a final
+           exponentiation, and e(A_i, B_i) of prove's proofs (32; under
+           --verify-only, generator multiples) in one batched call, each
+           against the mirror; seconds and K1 launches by op at batch 1 and 32
+  pairing_kernels  K1 (Fq mul, add, sub, inverse) at the pairing's shapes
+
 Then one line {"kernels": [...]} (per kernel: launches on the main path, error
 against the plain version, time, the plain version's time, the card's bound),
 the card's name and power limit, and last {"ok": true, "device": {...}}.
@@ -86,9 +106,10 @@ words, window_totals, bucket_sums and split_tail (which add in another order
 than their plain versions) after normalisation to affine coordinates.  Each
 kernel's launches are counted in the timed run of the path that uses it:
 prove for K1-K3, the inverse and the Jubjub chains, prove_hs for bucket_sums
-and the bucket fold, prove_split for split_lanes and split_tail, and the
-anon_ runs for the entries at the anonymous shapes; hs_add_select and
-column_scan are checked but on no path.
+and the bucket fold, prove_split for split_lanes and split_tail, the anon_
+runs for the entries at the anonymous shapes, the block's timed verification
+for the .reddsa entries and the batched pairing call for the .pairing entries;
+hs_add_select and column_scan are checked but on no path.
 """
 
 from __future__ import annotations
@@ -261,10 +282,50 @@ def random_elements(spec, shape, gen):
 
 
 # ----------------------------------------------------------------------
+FF_OPS = ("mont_mul", "mont_sqr", "add", "sub")
+
+
+def ff_entries(spec, shape, gen, ops=FF_OPS, tag="", path=None, off_path=()):
+    """The field kernels ``ops`` on random elements of ``shape`` (p - 1
+    planted in b), word for word against their plain versions."""
+    from zerochain_tpu_torch.ff import cuda_ff
+
+    a = random_elements(spec, shape, gen)
+    b = random_elements(spec, shape, gen)
+    b.reshape(spec.n, -1)[:, :3] = spec.array(
+        [spec.p - 1, spec.p - 1, spec.p - 1], "cuda")
+    count = a[0].numel()
+    n = spec.n
+    out = []
+    for op in ops:
+        kern = getattr(cuda_ff, op)
+        plain = getattr(cuda_ff, op + "_plain")
+        args = (spec, a) if op == "mont_sqr" else (spec, a, b)
+        got = kern(*args)
+        plain(*args)  # warm: the plain version caches its constants
+        want, plain_ms = timed(lambda: plain(*args), 2)
+        err = max_abs_err([got], [want])
+        n_arrays = 2 if op == "mont_sqr" else 3
+        ops_ = (2 * n * n + n) if op.startswith("mont") else 2 * n
+        bnd, by = bound_ms(n_arrays * n * 4 * count, ops_ * count)
+        e = dict(
+            name=f"ff.{op}.{spec.name}{tag}", route="cuda",
+            source="zerochain_tpu_torch/csrc/ff_kernels.cu",
+            replaces=TPU_FF, counter=("ff", f"{op}.{spec.name}"),
+            off_path=op in off_path,
+            shape=[n, *shape], equal=err == 0, max_abs_err=err,
+            ms=graph_ms(lambda: kern(*args)),
+            eager_ms=time_ms(lambda: kern(*args), 20), plain_ms=plain_ms,
+            bound_ms=bnd, bound_by=by, library_ms=None)
+        if path:
+            e["path"] = path
+        out.append(e)
+    return out
+
+
 def phase_kernels(prover, B, gen, assignments):
     from zerochain_tpu_torch.ec import cuda_ec
     from zerochain_tpu_torch.ec.fields import FqOps, Fq2Ops
-    from zerochain_tpu_torch.ff import cuda_ff
     from zerochain_tpu_torch.ff import limbs as L
     from zerochain_tpu_torch.msm import cuda_scan
     from zerochain_tpu_torch.msm import pippenger as pip
@@ -276,35 +337,11 @@ def phase_kernels(prover, B, gen, assignments):
     d = prover.d
     shapes = {"Fq": (d,), "Fr": (B, d // 2), "Fs": (B, d // 2)}
     for spec in (L.FQ, L.FR, L.FS):
-        shape = shapes[spec.name]
-        a = random_elements(spec, shape, gen)
-        b = random_elements(spec, shape, gen)
-        b.reshape(spec.n, -1)[:, :3] = spec.array(
-            [spec.p - 1, spec.p - 1, spec.p - 1], "cuda")
-        count = a[0].numel()
-        n = spec.n
-        for op in ("mont_mul", "mont_sqr", "add", "sub"):
-            kern = getattr(cuda_ff, op)
-            plain = getattr(cuda_ff, op + "_plain")
-            args = (spec, a) if op == "mont_sqr" else (spec, a, b)
-            got = kern(*args)
-            plain(*args)  # warm: the plain version caches its constants
-            want, plain_ms = timed(lambda: plain(*args), 2)
-            err = max_abs_err([got], [want])
-            n_arrays = 2 if op == "mont_sqr" else 3
-            ops = (2 * n * n + n) if op.startswith("mont") else 2 * n
-            bnd, by = bound_ms(n_arrays * n * 4 * count, ops * count)
-            entries.append(dict(
-                name=f"ff.{op}.{spec.name}", route="cuda",
-                source="zerochain_tpu_torch/csrc/ff_kernels.cu",
-                replaces=TPU_FF, counter=("ff", f"{op}.{spec.name}"),
-                # the prover has no Fs op; since the inverse is one kernel,
-                # no path squares in Fr
-                off_path=spec.name == "Fs" or (spec.name, op) == ("Fr", "mont_sqr"),
-                shape=[n, *shape], equal=err == 0, max_abs_err=err,
-                ms=graph_ms(lambda: kern(*args)),
-                eager_ms=time_ms(lambda: kern(*args), 20), plain_ms=plain_ms,
-                bound_ms=bnd, bound_by=by, library_ms=None))
+        # the prover has no Fs op; since the inverse is one kernel, no path
+        # squares in Fr
+        entries += ff_entries(spec, shapes[spec.name], gen, off_path=(
+            FF_OPS if spec.name == "Fs" else
+            ("mont_sqr",) if spec.name == "Fr" else ()))
 
     # ---- K2: point add / double on real CRS points (arbitrary Z), at the
     # path's shapes: B points (the assembly's adds), 3B (its widest chain),
@@ -1138,17 +1175,22 @@ def split_entries(prover, B, gen, assignments):
 
 
 def phase_profile(prover, assignments, rs, timed_seconds, path):
-    """One more prove of the path under torch.profiler: the card's busy
-    time, its idle share of the path's timed (unprofiled) run, and device
-    time by kernel name.  The profiled run itself is slowed by the tracing
-    of every launch."""
+    """One more prove of the path under torch.profiler (profile_call)."""
+    profile_call(lambda: prover.prove(assignments, rs=rs), timed_seconds, path)
+
+
+def profile_call(fn, timed_seconds, path):
+    """One more fn() under torch.profiler: the card's busy time, its idle
+    share of the path's timed (unprofiled) run, and device time by kernel
+    name.  The profiled run itself is slowed by the tracing of every
+    launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        prover.prove(assignments, rs=rs)
+        fn()
         torch.cuda.synchronize()
     wall = time.time() - t0
     rows = [(ev.key, ev.count, ev.self_device_time_total)
@@ -1501,7 +1543,7 @@ def phase_verify(prover, assignments, proofs, others, B, n_public, phase):
 
 def confidential_phases(mini, profile, gen, counters, path_counts):
     """Phases crs to verify on ConfidentialTransfer (or MiniCommit with
-    mini); -> the kernels phase's entries."""
+    mini); -> the kernels phase's entries and prove's proofs."""
     from zerochain_tpu_torch.groth16.core import create_proof, generate_parameters
     from zerochain_tpu_torch.mirror.field import R
     from zerochain_tpu_torch.prover import ConfidentialProver, MiniProver, TorchBackend
@@ -1577,7 +1619,7 @@ def confidential_phases(mini, profile, gen, counters, path_counts):
                   "prove_split": (path_proofs["prove_split"][B - 2], B - 2),
                   "backend": (backend_proof, 0)},
                  B, prover.num_inputs - 1, "verify")
-    return entries
+    return entries, proofs
 
 
 def anonymous_phases(profile, gen, counters, path_counts):
@@ -1623,6 +1665,250 @@ def anonymous_phases(profile, gen, counters, path_counts):
     return entries
 
 
+REDDSA_BLOCK = 4096      # signatures: 3 x 4,096 = 12,288 chains
+REDDSA_TAMPER = 2049
+REDDSA_PLAIN_LANES = 384  # the var chain's lanes held against its plain version
+PAIRING_BATCH = 32
+
+
+def reddsa_sigs(n, tamper_at=None):
+    """tests/test_redjubjub_batch.py's signatures: key i from its name, a
+    fixed nonce seed t, the message of ``tamper_at`` replaced."""
+    from zerochain_tpu_torch.protocol.redjubjub import PrivateKey
+
+    entries = []
+    for i in range(n):
+        sk = PrivateKey(int.from_bytes(f"batch-sk-{i}".encode().ljust(16, b"\0"),
+                                       "little"))
+        msg = f"message-{i}".encode()
+        sig = sk.sign(msg, t=bytes(((i + j) % 251 for j in range(80))))
+        entries.append((sk.public_key(), b"tampered" if i == tamper_at else msg,
+                        sig))
+    return entries
+
+
+def reddsa_block(n):
+    """A block's n signed extrinsics: deterministic keys, nonce seeds t and
+    randomizers z."""
+    from zerochain_tpu_torch.mirror.field import S
+    from zerochain_tpu_torch.protocol.redjubjub import PrivateKey
+
+    entries, zs = [], []
+    for i in range(n):
+        sk = PrivateKey((0x5EED + i) * 0x9E3779B97F4A7C15 % S)
+        msg = b"extrinsic-%d" % i
+        sig = sk.sign(msg, t=(0xB10C0000 + i).to_bytes(8, "little") * 10)
+        entries.append((sk.public_key(), msg, sig))
+        zs.append((0xC0FFEE + 977 * i) * 0xD6E8FEB86659FD93 % S or 1)
+    return entries, zs
+
+
+def reddsa_chain_entry(bases, bits):
+    """The var chain at the block's 3N lanes x 252 bits, its first
+    REDDSA_PLAIN_LANES lanes against var_chain_plain word for word (the
+    plain version's time is for those lanes)."""
+    from zerochain_tpu_torch.ec import cuda_jubjub
+
+    n_bits, lanes = bits.shape
+    k = REDDSA_PLAIN_LANES
+    got = cuda_jubjub.var_chain(bases, bits)
+    part = tuple(b[:, :k].contiguous() for b in bases)
+    want, plain_ms = timed(lambda: cuda_jubjub.var_chain_plain(part, bits[:, :k]))
+    err = max_abs_err([g[..., :k] for g in got], list(want))
+    del got
+    ms = time_ms(lambda: cuda_jubjub.var_chain(bases, bits), 3)
+    serial = 1 + n_bits * 9 + (n_bits - 1) * 8  # T, the adds, the doubles
+    bnd, by = bound_ms(2 * 8 * 4 * lanes + n_bits * lanes
+                       + 2 * 3 * 8 * 4 * n_bits * lanes,
+                       serial * FR_MUL_OPS * lanes)
+    return dict(
+        name="jubjub.var_chain.reddsa", route="cuda",
+        source="zerochain_tpu_torch/csrc/jubjub_kernels.cu", replaces=TPU_FF,
+        counter=("jj", "var_chain"), path="reddsa", shape=[8, n_bits, lanes],
+        equal=err == 0, max_abs_err=err, ms=ms, serial_mul=serial,
+        us_per_mul=ms * 1e3 / serial, plain_ms=plain_ms, plain_lanes=k,
+        bound_ms=bnd, bound_by=by, library_ms=None)
+
+
+def phase_reddsa(gen, counters, path_counts, profile):
+    """Batch RedJubjub verification on the card (protocol/redjubjub.py:
+    batch_verify_device): the small cases of tests/test_redjubjub_batch.py
+    against the host loop, the 16-entry total before the cofactor against
+    the mirror's sum, then a block of REDDSA_BLOCK signatures (one warm
+    call, one timed with the launch counters zeroed around it; one var_chain
+    launch) accepted, and its tampered copy rejected.  -> kernel entries."""
+    from zerochain_tpu_torch.ec import jubjub as ej
+    from zerochain_tpu_torch.ff import limbs as L
+    from zerochain_tpu_torch.mirror import jubjub as jj
+    from zerochain_tpu_torch.mirror.field import S
+    from zerochain_tpu_torch.protocol import redjubjub as rj
+
+    t_phase = time.time()
+    verdicts = {}
+    e128 = reddsa_sigs(128)
+    zs = [3 + 11 * i for i in range(128)]
+    verdicts["valid_128"] = (True, rj.batch_verify_device(e128, rand_scalars=zs),
+                             rj.batch_verify(e128, rand_scalars=zs))
+    e16 = reddsa_sigs(16, tamper_at=7)
+    zs16 = [5 + 7 * i for i in range(16)]
+    verdicts["tampered_16"] = (False, rj.batch_verify_device(e16, rand_scalars=zs16),
+                               rj.batch_verify(e16, rand_scalars=zs16))
+    e2 = reddsa_sigs(2)
+    pk, msg, sig = e2[1]
+    bad = [e2[0], (pk, msg, rj.Signature(sig.rbar, (S + 1).to_bytes(32, "little")))]
+    verdicts["bad_s"] = (False, rj.batch_verify_device(bad), rj.batch_verify(bad))
+    for name, (want, dev, host) in verdicts.items():
+        if dev != want or host != want:
+            raise SystemExit(f"reddsa: {name}: card {dev}, host {host}, expected {want}")
+
+    pts, scalars = rj._terms(reddsa_sigs(16), rj.DEFAULT_BASE, zs16)
+    total = rj._device_total(*rj._chain_inputs(pts, scalars, "cuda"))
+    want = jj.ZERO
+    for p, k in zip(pts, scalars):
+        want = jj.add(want, jj.mul(p, k))
+    if ej.to_affine_host(tuple(a[:, None] for a in total))[0] != want:
+        raise SystemExit("reddsa: the card's 16-entry total is not the mirror's sum")
+
+    t0 = time.time()
+    block, bzs = reddsa_block(REDDSA_BLOCK)
+    sign_s = time.time() - t0
+    rj.batch_verify_device(block, rand_scalars=bzs)  # warm
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.time()
+    accepted = rj.batch_verify_device(block, rand_scalars=bzs)
+    secs = time.time() - t0
+    counts = {k: dict(v) for k, v in counters.items()}
+    split = dict(rj.last_timings)
+    path_counts["reddsa"] = counts
+    tampered = list(block)
+    pk, _, sig = tampered[REDDSA_TAMPER]
+    tampered[REDDSA_TAMPER] = (pk, b"tampered", sig)
+    t0 = time.time()
+    rejected = not rj.batch_verify_device(tampered, rand_scalars=bzs)
+    tampered_s = time.time() - t0
+    k1 = {k: v for k, v in counts["ff"].items() if v}
+    emit("reddsa", small_cases={k: v[1] for k, v in verdicts.items()},
+         total_16_equal=True, block=REDDSA_BLOCK, chains=3 * REDDSA_BLOCK,
+         sign_seconds=sign_s, seconds=secs, host_seconds=split["host"],
+         device_seconds=split["device"], signatures_per_second=REDDSA_BLOCK / secs,
+         accepted=accepted, tampered_at=REDDSA_TAMPER, tampered_rejected=rejected,
+         tampered_seconds=tampered_s, jubjub_launches=counts["jj"],
+         k1_launches=sum(k1.values()), k1_by_op=k1,
+         other_launches=sum(counts["ec"].values()) + sum(counts["scan"].values()))
+    if not accepted or not rejected:
+        raise SystemExit(f"reddsa: block accepted {accepted}, tampered copy "
+                         f"rejected {rejected}")
+    if counts["jj"] != {"var_chain": 1, "fixed_chain": 0}:
+        raise SystemExit(f"reddsa: chain launches {counts['jj']}, expected one var_chain")
+    if profile:
+        profile_call(lambda: rj.batch_verify_device(block, rand_scalars=bzs),
+                     secs, "reddsa")
+
+    bases, bits = rj._chain_inputs(*rj._terms(block, rj.DEFAULT_BASE, bzs), "cuda")
+    width = 1 << (bits.shape[1] - 1).bit_length()
+    entries = [reddsa_chain_entry(bases, bits)]
+    # K1 at the tree's first level (Fr, width / 2 adds)
+    entries += ff_entries(L.FR, (width // 2,), gen, ops=("mont_mul", "add", "sub"),
+                          tag=".reddsa", path="reddsa")
+    emit("reddsa_kernels", seconds=time.time() - t_phase,
+         kernels=[{k: e[k] for k in ("name", "shape", "equal", "ms", "plain_ms")}
+                  for e in entries])
+    return entries
+
+
+def phase_pairing(proofs, gen, counters, path_counts, profile):
+    """The BLS12-381 pairing on the card (ec/pairing.py over ec/tower.py):
+    e(G1, G2) and bilinearity against the mirror (which the CPU tests pin to
+    RELIC), a 3-pair Miller loop and one final exponentiation, and e(A_i,
+    B_i) of the proofs (without proofs: PAIRING_BATCH pairs of generator
+    multiples) in one batched call, each against the mirror; seconds and
+    K1 launches by op of a call at batch 1 and at the proofs' batch (one
+    warm call, one timed with the counters zeroed around it).  -> kernel
+    entries (K1 at the pairing's shapes, counted in the batched call)."""
+    from zerochain_tpu_torch.ec import pairing as DP
+    from zerochain_tpu_torch.ec import tower as T
+    from zerochain_tpu_torch.ff import limbs as L
+    from zerochain_tpu_torch.mirror import curves as C
+    from zerochain_tpu_torch.mirror import pairing as P
+
+    t_phase = time.time()
+    if DP.pairing_host(C.G1_GEN, C.G2_GEN) != P.pairing(C.G1_GEN, C.G2_GEN):
+        raise SystemExit("pairing: e(G1, G2) differs from the mirror's")
+    a, b = 0x1234567, 0x89ABCDE
+    pa, qb = C.g1_mul(C.G1_GEN, a), C.g2_mul(C.G2_GEN, b)
+    e = DP.pairing_host_batch([pa, C.g1_mul(C.G1_GEN, a * b)], [qb, C.G2_GEN])
+    if e[0] != e[1] or e[0] != P.pairing(pa, qb):
+        raise SystemExit("pairing: e(aP, bQ) != e(abP, Q), or not the mirror's")
+    ps3 = [C.g1_mul(C.G1_GEN, k) for k in (3, 0x10001, 0xDEADBEEF)]
+    qs3 = [C.g2_mul(C.G2_GEN, k) for k in (5, 0xABCDEF, 77)]
+    pairs = [(DP.g1_tensors([p], "cuda"), DP.g2_prepare(*DP.g2_tensors([q], "cuda")))
+             for p, q in zip(ps3, qs3)]
+    f = DP.final_exponentiation(DP.miller_loop(pairs))
+    if T.fq12_to_ints(f) != [P.final_exponentiation(P.miller_loop(list(zip(ps3, qs3))))]:
+        raise SystemExit("pairing: the 3-pair Miller loop + final exponentiation "
+                         "differs from the mirror's")
+
+    if proofs is None:
+        ps = [C.g1_mul(C.G1_GEN, 3 + 7 * i) for i in range(PAIRING_BATCH)]
+        qs = [C.g2_mul(C.G2_GEN, 5 + 11 * i) for i in range(PAIRING_BATCH)]
+        source = "generator multiples"
+    else:
+        ps, qs = [p.a for p in proofs], [p.b for p in proofs]
+        source = "proofs (A, B)"
+    runs = {}
+    for n in sorted({1, len(ps)}):
+        DP.pairing_host_batch(ps[:n], qs[:n])  # warm
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.time()
+        got = DP.pairing_host_batch(ps[:n], qs[:n])
+        secs = time.time() - t0
+        counts = {k: dict(v) for k, v in counters.items()}
+        k1 = {k: v for k, v in counts["ff"].items() if v}
+        runs[n] = dict(seconds=secs, pairings_per_second=n / secs,
+                       k1_launches=sum(k1.values()), k1_by_op=k1,
+                       other_launches=sum(sum(c.values()) for g, c in counts.items()
+                                          if g != "ff"))
+    path_counts["pairing"] = counts
+    t0 = time.time()
+    want = [P.pairing(p, q) for p, q in zip(ps, qs)]
+    mirror_s = time.time() - t0
+    if got != want:
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        raise SystemExit(f"pairing: batched pairings {bad} differ from the mirror's")
+    emit("pairing", generator_equal=True, bilinear=True, miller_3_pairs_equal=True,
+         batch=len(ps), batch_of=source, batch_equal=True,
+         mirror_seconds=mirror_s, runs=runs)
+    if counts["ff"]["inv.Fq"] == 0 or runs[len(ps)]["other_launches"]:
+        raise SystemExit(f"pairing: launches {counts}: expected K1 Fq ops and one "
+                         "inversion, nothing else")
+    if profile:
+        profile_call(lambda: DP.pairing_host_batch(ps, qs), runs[len(ps)]["seconds"],
+                     "pairing")
+
+    # K1 at the pairing's shapes at this batch: the Fq multiplies of one
+    # fq12_mul (3 Karatsuba x 6 x 3 products a pairing), an Fq12's adds,
+    # and the inverse of one fq2_inv
+    n = len(ps)
+    entries = ff_entries(L.FQ, (54 * n,), gen, ops=("mont_mul",), tag=".pairing",
+                         path="pairing")
+    entries += ff_entries(L.FQ, (12 * n,), gen, ops=("add", "sub"), tag=".pairing",
+                          path="pairing")
+    entries.append(inv_entry(L.FQ, (max(n, 3),), gen, False, tag=".pairing"))
+    entries[-1]["path"] = "pairing"
+    emit("pairing_kernels", seconds=time.time() - t_phase,
+         kernels=[{k: e[k] for k in ("name", "shape", "equal", "ms", "plain_ms")}
+                  for e in entries])
+    return entries
+
+
+def verify_phases(proofs, profile, gen, counters, path_counts):
+    """The reddsa and pairing phases; -> their kernel entries."""
+    return (phase_reddsa(gen, counters, path_counts, profile)
+            + phase_pairing(proofs, gen, counters, path_counts, profile))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--mini", action="store_true",
@@ -1632,13 +1918,16 @@ def main() -> int:
     ap.add_argument("--anon-only", action="store_true",
                     help="run the build and the AnonymousTransfer phases "
                          "alone")
+    ap.add_argument("--verify-only", action="store_true",
+                    help="run the build and the verifier-side phases (reddsa, "
+                         "pairing) alone")
     ap.add_argument("--profile", action="store_true",
                     help="after each path's timed run, prove once more "
                          "under torch.profiler and print the card's idle "
                          "share")
     args = ap.parse_args()
-    if args.mini and args.anon_only:
-        ap.error("--mini and --anon-only exclude each other")
+    if args.mini + args.anon_only + args.verify_only > 1:
+        ap.error("--mini, --anon-only and --verify-only exclude each other")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script only runs on the GPU",
@@ -1681,12 +1970,17 @@ def main() -> int:
                 "scan": cuda_scan.launches, "jj": cuda_jubjub.launches}
     path_counts = {}
     entries = []
-    if not args.anon_only:
-        entries += confidential_phases(args.mini, args.profile, gen, counters,
-                                       path_counts)
-    if not args.mini:
+    proofs = None
+    if not (args.anon_only or args.verify_only):
+        conf, proofs = confidential_phases(args.mini, args.profile, gen,
+                                           counters, path_counts)
+        entries += conf
+    if not (args.mini or args.verify_only):
         torch.cuda.empty_cache()  # the confidential prover is gone
         entries += anonymous_phases(args.profile, gen, counters, path_counts)
+    if not args.anon_only:
+        torch.cuda.empty_cache()
+        entries += verify_phases(proofs, args.profile, gen, counters, path_counts)
 
     for e in entries:
         grp, key = e.pop("counter")
@@ -1708,11 +2002,13 @@ def main() -> int:
     # serial_mul, us_per_mul: a serial chain's multiplies a thread and its
     # time over them; k1_loop_ms: a Jubjub chain as its former loop of
     # field-kernel launches; chunk, heaviest_bucket_g1 / _g2: the anonymous
-    # chunk an entry ran on, and the batch's largest bucket over all chunks
+    # chunk an entry ran on, and the batch's largest bucket over all chunks;
+    # plain_lanes: the lanes the plain version ran on (its plain_ms)
     extras = ("eager_ms", "one_lane_ms", "nonzero_digits", "row_nonzero_q",
               "n_madd", "n_add", "heaviest_bucket", "heaviest_at", "rows_checked",
               "path", "off_path", "serial_mul", "us_per_mul", "k1_loop_ms",
-              "chunk", "heaviest_bucket_g1", "heaviest_bucket_g2")
+              "chunk", "heaviest_bucket_g1", "heaviest_bucket_g2",
+              "plain_lanes")
     print(json.dumps({"kernels": [
         {**{k: e[k] for k in keys}, **{k: e[k] for k in extras if k in e}}
         for e in entries]}), flush=True)

@@ -64,16 +64,19 @@ def test_sources_do_not_name_jax():
 
 
 @pytest.mark.parametrize("what", ["plan", "matrices", "fixed_base", "prover",
-                                  "backend", "host_msm"])
+                                  "backend", "host_msm", "batch_verify",
+                                  "pairing"])
 def test_default_device_raises_without_cuda(what):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device exists")
     from zerochain_tpu_torch.ec.fields import FqOps
+    from zerochain_tpu_torch.ec.pairing import pairing_host
     from zerochain_tpu_torch.mirror import curves as cv
     from zerochain_tpu_torch.msm.pippenger import FixedBaseMsm
     from zerochain_tpu_torch.ntt import NttPlan
     from zerochain_tpu_torch.msm.pippenger import msm_g1
     from zerochain_tpu_torch.prover import MiniProver, TorchBackend
+    from zerochain_tpu_torch.protocol.redjubjub import PrivateKey, batch_verify_device
     from zerochain_tpu_torch.prover.matvec import ConstraintMatrices
     from zerochain_tpu_torch.r1cs.system import ConstraintSystem
 
@@ -84,6 +87,9 @@ def test_default_device_raises_without_cuda(what):
         "prover": lambda: MiniProver.from_toxic_waste(1, 2, 3, 4, 5),
         "backend": lambda: TorchBackend(),
         "host_msm": lambda: msm_g1([cv.G1_GEN], [3]),
+        "batch_verify": lambda: batch_verify_device(
+            [(PrivateKey(5).public_key(), b"m", PrivateKey(5).sign(b"m", t=bytes(80)))]),
+        "pairing": lambda: pairing_host(cv.G1_GEN, cv.G2_GEN),
     }[what]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()

@@ -90,6 +90,15 @@ def points_from_ref(pts, device="cpu"):
     return tuple(conv(c) for c in pts)
 
 
+def fq12_from_ref(a, device="cpu"):
+    """A JAX-package Fq12 (nested tuples ((3 x Fq2), (3 x Fq2)) of Fq
+    Montgomery limb arrays (32, *batch)) -> this port's tower tensor
+    (12, 2, 3, 2, *batch) (``ec/tower.py``)."""
+    return torch.stack([torch.stack([torch.stack(
+        [from_ref_limbs(L.FQ, a[h][i][c], mont=True, device=device)
+         for c in range(2)], 1) for i in range(3)], 2) for h in range(2)], 3)
+
+
 def queries_from_ref_npz(path: str):
     """Read an ``.npz`` written by the JAX package's
     ``ConfidentialProver.save_queries`` (keys ``h_x`` ... ``b2_z1``, ``vk``)

@@ -1,5 +1,6 @@
-"""Zerochain protocol layer: keys and ElGamal (host Python, off the hot
-path).  Mirrors the reference's no_std_aliases/{keys,elgamal}.rs."""
+"""Zerochain protocol layer: keys, ElGamal and RedDSA (host Python, off the
+hot path, apart from the batch verifier's device path).  Mirrors the
+reference's no_std_aliases/{keys,elgamal}.rs and core/jubjub/src/redjubjub.rs."""
 
 from .keys import (  # noqa: F401
     SpendingKey,
@@ -8,3 +9,4 @@ from .keys import (  # noqa: F401
     EncryptionKey,
 )
 from .elgamal import Ciphertext, elgamal_extend  # noqa: F401
+from . import redjubjub  # noqa: F401
