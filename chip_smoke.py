@@ -8,6 +8,7 @@
     python3 chip_smoke.py --anon-only  # the build and the anonymous phases alone
     python3 chip_smoke.py --verify-only  # the build and the phases reddsa and
                                          # pairing alone
+    python3 chip_smoke.py --cli-only   # the build and the cli phase alone
 
 Phases, each printing one JSON line when it ends; any failure raises and the
 run exits non-zero (there is no CPU fallback):
@@ -91,6 +92,24 @@ Then, after the anonymous phases and also under --mini, the verifier's side:
            --verify-only, generator multiples) in one batched call, each
            against the mirror; seconds and K1 launches by op at batch 1 and 32
   pairing_kernels  K1 (Fq mul, add, sub, inverse) at the pairing's shapes
+
+Last, except under --mini, --anon-only and --verify-only, the command line
+(python -m zerochain_tpu_torch) in a temporary directory:
+
+  cli   wallet recovery from a fixed phrase and add-account bob
+        (subprocesses); snark setup --circuit confidential --backend torch
+        and tx send --backend torch --amount 30 in this process, launches
+        counted and seconds split into the backend's calls and the host's
+        rest; chain init / endow 100 / next-block --count 7 and the wallet
+        balances as subprocesses: 69 for the sender, pending 30 for bob, 30
+        after bob's rollover; the transfer's call on the state before it
+        rejected with A and C of its proof swapped and accepted with the
+        real proof; an RpcServer over the saved runtime read by RpcClient
+        (block number, the sender's nonce 1).  Fails unless setup launched
+        the K2 adds (FixedBaseMsm), tx send bucket_sums and bucket_fold, and
+        the native codec's C library loaded (it makes the bit planes of
+        every scalar that setup and tx send hand to the card).
+  cli_launches  the launches of setup and of tx send, by kernel
 
 Then one line {"kernels": [...]} (per kernel: launches on the main path, error
 against the plain version, time, the plain version's time, the card's bound),
@@ -1260,12 +1279,12 @@ def check_bucket_launches(prover, counts, rolls):
                              f"{got} for {n} MSM chunks")
 
 
-def timed_backend(backend):
-    """Wrap the backend's entry points that create_proof calls so that their
-    seconds (each call ended by a synchronize) add up by name in the
-    returned dict."""
+def timed_backend(backend, names=("msm_g1", "msm_g2", "compute_h")):
+    """Wrap the backend's entry points (by default those that create_proof
+    calls) so that their seconds (each call ended by a synchronize) add up
+    by name in the returned dict."""
     spent = {}
-    for name in ("msm_g1", "msm_g2", "compute_h"):
+    for name in names:
         fn = getattr(backend, name)
 
         def wrapped(*a, _fn=fn, _name=name, **kw):
@@ -1731,7 +1750,7 @@ def reddsa_chain_entry(bases, bits):
 
 
 def phase_reddsa(gen, counters, path_counts, profile):
-    """Batch RedJubjub verification on the card (protocol/redjubjub.py:
+    """Batch RedJubjub verification on the card (protocol/redjubjub_device.py:
     batch_verify_device): the small cases of tests/test_redjubjub_batch.py
     against the host loop, the 16-entry total before the cofactor against
     the mirror's sum, then a block of REDDSA_BLOCK signatures (one warm
@@ -1742,27 +1761,28 @@ def phase_reddsa(gen, counters, path_counts, profile):
     from zerochain_tpu_torch.mirror import jubjub as jj
     from zerochain_tpu_torch.mirror.field import S
     from zerochain_tpu_torch.protocol import redjubjub as rj
+    from zerochain_tpu_torch.protocol import redjubjub_device as rjd
 
     t_phase = time.time()
     verdicts = {}
     e128 = reddsa_sigs(128)
     zs = [3 + 11 * i for i in range(128)]
-    verdicts["valid_128"] = (True, rj.batch_verify_device(e128, rand_scalars=zs),
+    verdicts["valid_128"] = (True, rjd.batch_verify_device(e128, rand_scalars=zs),
                              rj.batch_verify(e128, rand_scalars=zs))
     e16 = reddsa_sigs(16, tamper_at=7)
     zs16 = [5 + 7 * i for i in range(16)]
-    verdicts["tampered_16"] = (False, rj.batch_verify_device(e16, rand_scalars=zs16),
+    verdicts["tampered_16"] = (False, rjd.batch_verify_device(e16, rand_scalars=zs16),
                                rj.batch_verify(e16, rand_scalars=zs16))
     e2 = reddsa_sigs(2)
     pk, msg, sig = e2[1]
     bad = [e2[0], (pk, msg, rj.Signature(sig.rbar, (S + 1).to_bytes(32, "little")))]
-    verdicts["bad_s"] = (False, rj.batch_verify_device(bad), rj.batch_verify(bad))
+    verdicts["bad_s"] = (False, rjd.batch_verify_device(bad), rj.batch_verify(bad))
     for name, (want, dev, host) in verdicts.items():
         if dev != want or host != want:
             raise SystemExit(f"reddsa: {name}: card {dev}, host {host}, expected {want}")
 
-    pts, scalars = rj._terms(reddsa_sigs(16), rj.DEFAULT_BASE, zs16)
-    total = rj._device_total(*rj._chain_inputs(pts, scalars, "cuda"))
+    pts, scalars = rjd._terms(reddsa_sigs(16), rj.DEFAULT_BASE, zs16)
+    total = rjd._device_total(*rjd._chain_inputs(pts, scalars, "cuda"))
     want = jj.ZERO
     for p, k in zip(pts, scalars):
         want = jj.add(want, jj.mul(p, k))
@@ -1772,20 +1792,20 @@ def phase_reddsa(gen, counters, path_counts, profile):
     t0 = time.time()
     block, bzs = reddsa_block(REDDSA_BLOCK)
     sign_s = time.time() - t0
-    rj.batch_verify_device(block, rand_scalars=bzs)  # warm
+    rjd.batch_verify_device(block, rand_scalars=bzs)  # warm
     torch.cuda.synchronize()
     reset_counters()
     t0 = time.time()
-    accepted = rj.batch_verify_device(block, rand_scalars=bzs)
+    accepted = rjd.batch_verify_device(block, rand_scalars=bzs)
     secs = time.time() - t0
     counts = {k: dict(v) for k, v in counters.items()}
-    split = dict(rj.last_timings)
+    split = dict(rjd.last_timings)
     path_counts["reddsa"] = counts
     tampered = list(block)
     pk, _, sig = tampered[REDDSA_TAMPER]
     tampered[REDDSA_TAMPER] = (pk, b"tampered", sig)
     t0 = time.time()
-    rejected = not rj.batch_verify_device(tampered, rand_scalars=bzs)
+    rejected = not rjd.batch_verify_device(tampered, rand_scalars=bzs)
     tampered_s = time.time() - t0
     k1 = {k: v for k, v in counts["ff"].items() if v}
     emit("reddsa", small_cases={k: v[1] for k, v in verdicts.items()},
@@ -1802,10 +1822,10 @@ def phase_reddsa(gen, counters, path_counts, profile):
     if counts["jj"] != {"var_chain": 1, "fixed_chain": 0}:
         raise SystemExit(f"reddsa: chain launches {counts['jj']}, expected one var_chain")
     if profile:
-        profile_call(lambda: rj.batch_verify_device(block, rand_scalars=bzs),
+        profile_call(lambda: rjd.batch_verify_device(block, rand_scalars=bzs),
                      secs, "reddsa")
 
-    bases, bits = rj._chain_inputs(*rj._terms(block, rj.DEFAULT_BASE, bzs), "cuda")
+    bases, bits = rjd._chain_inputs(*rjd._terms(block, rj.DEFAULT_BASE, bzs), "cuda")
     width = 1 << (bits.shape[1] - 1).bit_length()
     entries = [reddsa_chain_entry(bases, bits)]
     # K1 at the tree's first level (Fr, width / 2 adds)
@@ -1909,6 +1929,198 @@ def verify_phases(proofs, profile, gen, counters, path_counts):
             + phase_pairing(proofs, gen, counters, path_counts, profile))
 
 
+CLI_PHRASE = ("legal winner thank year wave sausage worth useful legal "
+              "winner thank yellow")
+CLI_TIMEOUT = 300  # seconds a CLI subprocess may take
+
+
+def phase_cli(counters):
+    """The zface flow through the port's command line, in a temporary
+    directory: wallet and chain commands as ``python -m zerochain_tpu_torch``
+    subprocesses, ``snark setup`` and ``tx send`` with ``--backend torch``
+    in process (their launches counted, their seconds split into the
+    backend's calls and the host's rest), the balances after the transfer
+    and after a rollover, a corrupted proof rejected by the runtime (the
+    same call with the real proof accepted), and an RpcServer over the
+    saved runtime.  Fails unless setup launched FixedBaseMsm's K2 adds, tx
+    send the bucket MSM's bucket_sums and bucket_fold, and the native
+    codec's C library loaded (msm/pippenger.py's scalars_to_bits goes
+    through it)."""
+    import contextlib
+    import io
+    import os
+    import pathlib
+    import pickle
+    import tempfile
+
+    from zerochain_tpu_torch import cli
+    from zerochain_tpu_torch.groth16.serialization import proof_to_bytes, proof_from_bytes
+    from zerochain_tpu_torch.native import codec
+    from zerochain_tpu_torch.rpc import RpcClient, RpcServer
+    from zerochain_tpu_torch.runtime.encrypted_balances import DispatchError
+    from zerochain_tpu_torch.runtime.primitives import EncKey, ProofBytes
+    from zerochain_tpu_torch.wallet.ss58 import decode_ss58
+
+    t_phase = time.time()
+    if not codec.native_available():
+        raise SystemExit("cli: the native codec's C library did not load")
+    root = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(root)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    seconds, launches, backend_seconds = {}, {}, {}
+
+    with tempfile.TemporaryDirectory(prefix="zc_cli_") as tmp:
+        wallet, chain = f"{tmp}/wallet", f"{tmp}/chain"
+        pk, vk = f"{tmp}/conf_pk.dat", f"{tmp}/conf_vk.dat"
+        state = pathlib.Path(chain) / "chain_state.pickle"
+        pw = ["--password", "pw"]
+
+        def sub(name, *argv):
+            t0 = time.time()
+            out = subprocess.run(
+                [sys.executable, "-m", "zerochain_tpu_torch", *argv], cwd=tmp,
+                env=env, capture_output=True, text=True, timeout=CLI_TIMEOUT)
+            seconds[name] = time.time() - t0
+            if out.returncode != 0:
+                raise SystemExit(f"cli: {name} exited {out.returncode}:\n"
+                                 f"{out.stderr[-3000:]}")
+            return out.stdout
+
+        def inproc(name, *argv):
+            """cli.main in this process, launch counters zeroed just before
+            and read just after, the backend's calls timed."""
+            make = cli._backend
+
+            def timed(args):
+                be = make(args)
+                backend_seconds[name] = timed_backend(
+                    be, ("fixed_base_g1", "fixed_base_g2", "msm_g1", "msm_g2",
+                         "compute_h"))
+                return be
+
+            buf = io.StringIO()
+            cli._backend = timed
+            try:
+                torch.cuda.synchronize()
+                reset_counters()
+                t0 = time.time()
+                with contextlib.redirect_stdout(buf):
+                    cli.main(list(argv))
+                torch.cuda.synchronize()
+                seconds[name] = time.time() - t0
+            finally:
+                cli._backend = make
+            launches[name] = {f"{grp}.{k}": n for grp, c in counters.items()
+                              for k, n in c.items() if n}
+            return buf.getvalue()
+
+        def balance(account=None):
+            return sub(f"wallet_balance_{account or 'default'}", "wallet",
+                       "balance", "--wallet", wallet, *pw, "--chain", chain,
+                       *(["--account", account] if account else []))
+
+        # 1. wallet
+        sub("wallet_recovery", "wallet", "recovery", "--wallet", wallet, *pw,
+            CLI_PHRASE)
+        sub("wallet_add_account", "wallet", "add-account", "--wallet", wallet,
+            *pw, "bob")
+        addr = {}
+        for line in sub("wallet_list", "wallet", "list", "--wallet",
+                        wallet).splitlines():
+            name, address = line[2:].split(": ")
+            addr[name] = address
+        # 2. trusted setup on the card
+        inproc("snark_setup", "snark", "setup", "--circuit", "confidential",
+               "--pk", pk, "--vk", vk, "--backend", "torch")
+        sizes = dict(pk_bytes=os.path.getsize(pk), vk_bytes=os.path.getsize(vk))
+        if sizes["vk_bytes"] != 41966:
+            raise SystemExit(f"cli: the prepared vk has {sizes['vk_bytes']} "
+                             "bytes, not the reference's 41,966")
+        # 3. genesis
+        sub("chain_init", "chain", "init", "--chain", chain, "--conf-vk", vk)
+        sub("chain_endow", "chain", "endow", "--chain", chain, addr["default"],
+            "100")
+        before_send = state.read_bytes()
+        # 4. the transfer, proved on the card
+        out = inproc("tx_send", "tx", "send", "--wallet", wallet, *pw,
+                     "--chain", chain, "--pk", pk, "--vk", vk, "--to",
+                     addr["bob"], "--amount", "30", "--backend", "torch")
+        if "transfer applied; events: ['ConfidentialTransfer']" not in out:
+            raise SystemExit(f"cli: tx send did not apply the transfer: {out}")
+        after_send = state.read_bytes()
+        # 5. balances
+        got = dict(sender=balance(), bob=balance("bob"))
+        if ("balance: 69" not in got["sender"]
+                or "pending: 30" not in got["bob"]):
+            raise SystemExit(f"cli: balances after the transfer: {got}")
+        # 6. a rollover in the next epoch
+        sub("chain_next_block", "chain", "next-block", "--chain", chain,
+            "--count", "7")
+        rt = pickle.loads(state.read_bytes())
+        rt.encrypted_balances.rollover(EncKey(decode_ss58(addr["bob"])))
+        state.write_bytes(pickle.dumps(rt))
+        got["bob_after_rollover"] = balance("bob")
+        if "balance: 30" not in got["bob_after_rollover"]:
+            raise SystemExit(f"cli: bob after the rollover: {got}")
+
+        # 7. the transfer's call again on the state before it: rejected with
+        # A and C swapped (a proof that decodes, against the same inputs),
+        # accepted with the real proof
+        sent = pickle.loads(after_send)
+        ev = sent.encrypted_balances.events[-1]
+        call = dict(address_sender=ev[2], address_recipient=ev[3],
+                    amount_sender=ev[4], amount_recipient=ev[5],
+                    fee_sender=ev[6], randomness=ev[7],
+                    nonce=sent.zk_system.nonce_pool[-1])
+        real = ev[1].data
+        p = proof_from_bytes(real)
+        swapped = proof_to_bytes(type(p)(a=p.c, b=p.b, c=p.a))
+        t0 = time.time()
+        rt = pickle.loads(before_send)
+        try:
+            rt.encrypted_balances.confidential_transfer(
+                ev[9], zkproof=ProofBytes(swapped), **call)
+            raise SystemExit("cli: the runtime accepted a corrupted proof")
+        except DispatchError as e:
+            rejected = str(e)
+        if rt.encrypted_balances.events[-1] != ("InvalidZkProof",) or (
+                rt.zk_system.nonce_pool):
+            raise SystemExit("cli: the rejection changed the state")
+        rt = pickle.loads(before_send)
+        rt.encrypted_balances.confidential_transfer(
+            ev[9], zkproof=ProofBytes(real), **call)
+        seconds["runtime_verify_twice"] = time.time() - t0
+
+        # 8. the node side: RPC over the saved runtime
+        rt = pickle.loads(state.read_bytes())
+        server = RpcServer(rt).start()
+        try:
+            api = RpcClient(f"http://127.0.0.1:{server.port}")
+            rpc = dict(block_number=api.get_block_number(),
+                       sender_nonce=api.get_nonce(ev[9].data))
+        finally:
+            server.stop()
+        if rpc != dict(block_number=rt.block_number, sender_nonce=1):
+            raise SystemExit(f"cli: RPC read {rpc}, the state holds "
+                             f"block {rt.block_number}")
+
+    need = {"snark_setup": ("ec.g1_add", "ec.g2_add"),
+            "tx_send": ("ec.g1_bucket_sums", "ec.g2_bucket_sums",
+                        "ec.g1_bucket_fold", "ec.g2_bucket_fold")}
+    missing = {cmd: [k for k in keys if not launches[cmd].get(k)]
+               for cmd, keys in need.items()}
+    if any(missing.values()):
+        raise SystemExit(f"cli: kernels not launched: {missing}")
+    emit("cli", seconds=time.time() - t_phase, command_seconds=seconds,
+         backend_seconds=backend_seconds,
+         host_seconds={k: seconds[k] - sum(v.values())
+                       for k, v in backend_seconds.items()},
+         balances={k: v.split() for k, v in got.items()},
+         corrupted_proof=rejected, rpc=rpc, native_codec=True, **sizes)
+    emit("cli_launches", **launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--mini", action="store_true",
@@ -1921,13 +2133,17 @@ def main() -> int:
     ap.add_argument("--verify-only", action="store_true",
                     help="run the build and the verifier-side phases (reddsa, "
                          "pairing) alone")
+    ap.add_argument("--cli-only", action="store_true",
+                    help="run the build and the cli phase (the command "
+                         "line's wallet -> setup -> transfer flow) alone")
     ap.add_argument("--profile", action="store_true",
                     help="after each path's timed run, prove once more "
                          "under torch.profiler and print the card's idle "
                          "share")
     args = ap.parse_args()
-    if args.mini + args.anon_only + args.verify_only > 1:
-        ap.error("--mini, --anon-only and --verify-only exclude each other")
+    if args.mini + args.anon_only + args.verify_only + args.cli_only > 1:
+        ap.error("--mini, --anon-only, --verify-only and --cli-only exclude "
+                 "each other")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script only runs on the GPU",
@@ -1971,16 +2187,20 @@ def main() -> int:
     path_counts = {}
     entries = []
     proofs = None
-    if not (args.anon_only or args.verify_only):
+    only = args.anon_only or args.verify_only or args.cli_only
+    if not only:
         conf, proofs = confidential_phases(args.mini, args.profile, gen,
                                            counters, path_counts)
         entries += conf
-    if not (args.mini or args.verify_only):
+    if not (args.mini or args.verify_only or args.cli_only):
         torch.cuda.empty_cache()  # the confidential prover is gone
         entries += anonymous_phases(args.profile, gen, counters, path_counts)
-    if not args.anon_only:
+    if not (args.anon_only or args.cli_only):
         torch.cuda.empty_cache()
         entries += verify_phases(proofs, args.profile, gen, counters, path_counts)
+    if not (args.mini or args.anon_only or args.verify_only):
+        torch.cuda.empty_cache()
+        phase_cli(counters)
 
     for e in entries:
         grp, key = e.pop("counter")

@@ -65,20 +65,25 @@ def test_sources_do_not_name_jax():
 
 @pytest.mark.parametrize("what", ["plan", "matrices", "fixed_base", "prover",
                                   "backend", "host_msm", "batch_verify",
-                                  "pairing"])
+                                  "pairing", "cli_setup", "cli_setup_default",
+                                  "cli_send_default", "key_context_setup"])
 def test_default_device_raises_without_cuda(what):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device exists")
+    from zerochain_tpu_torch import cli
     from zerochain_tpu_torch.ec.fields import FqOps
     from zerochain_tpu_torch.ec.pairing import pairing_host
+    from zerochain_tpu_torch.models.confidential import ConfidentialTransfer
     from zerochain_tpu_torch.mirror import curves as cv
     from zerochain_tpu_torch.msm.pippenger import FixedBaseMsm
     from zerochain_tpu_torch.ntt import NttPlan
     from zerochain_tpu_torch.msm.pippenger import msm_g1
     from zerochain_tpu_torch.prover import MiniProver, TorchBackend
-    from zerochain_tpu_torch.protocol.redjubjub import PrivateKey, batch_verify_device
+    from zerochain_tpu_torch.protocol.redjubjub import PrivateKey
+    from zerochain_tpu_torch.protocol.redjubjub_device import batch_verify_device
     from zerochain_tpu_torch.prover.matvec import ConstraintMatrices
     from zerochain_tpu_torch.r1cs.system import ConstraintSystem
+    from zerochain_tpu_torch.tx.builder import KeyContext
 
     make = {
         "plan": lambda: NttPlan(8),
@@ -90,6 +95,20 @@ def test_default_device_raises_without_cuda(what):
         "batch_verify": lambda: batch_verify_device(
             [(PrivateKey(5).public_key(), b"m", PrivateKey(5).sign(b"m", t=bytes(80)))]),
         "pairing": lambda: pairing_host(cv.G1_GEN, cv.G2_GEN),
+        # the CLI's torch backend: --device cpu is the only way to the CPU
+        "cli_setup": lambda: cli.main(
+            ["snark", "setup", "--backend", "torch", "--pk", "/nonexistent/pk",
+             "--vk", "/nonexistent/vk"]),
+        # with no --backend the CLI's setup and send go to the card too,
+        # and send refuses before it reads the chain, wallet or keys
+        "cli_setup_default": lambda: cli.main(
+            ["snark", "setup", "--pk", "/nonexistent/pk",
+             "--vk", "/nonexistent/vk"]),
+        "cli_send_default": lambda: cli.main(
+            ["tx", "send", "--chain", "/nonexistent/chain",
+             "--pk", "/nonexistent/pk", "--vk", "/nonexistent/vk",
+             "--to", "nobody", "--amount", "1"]),
+        "key_context_setup": lambda: KeyContext.setup(ConfidentialTransfer),
     }[what]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()

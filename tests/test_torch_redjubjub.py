@@ -9,9 +9,11 @@ from zerochain_tpu_torch.ec import jubjub as ej
 from zerochain_tpu_torch.mirror import jubjub as jj
 from zerochain_tpu_torch.mirror.field import S
 from zerochain_tpu_torch.protocol import redjubjub as rj
+from zerochain_tpu_torch.protocol import redjubjub_device as rjd
 from zerochain_tpu_torch.protocol.redjubjub import (
-    PrivateKey, PublicKey, Signature, batch_verify, batch_verify_device,
+    PrivateKey, PublicKey, Signature, batch_verify,
 )
+from zerochain_tpu_torch.protocol.redjubjub_device import batch_verify_device
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -80,9 +82,9 @@ def test_device_total_is_the_mirror_sum(tamper_at):
     n = 16
     entries = _sigs(n, tamper_at=tamper_at)
     zs = [5 + 7 * i for i in range(n)]
-    pts, scalars = rj._terms(entries, rj.DEFAULT_BASE, zs)
+    pts, scalars = rjd._terms(entries, rj.DEFAULT_BASE, zs)
     assert len(pts) == 3 * n
-    total = rj._device_total(*rj._chain_inputs(pts, scalars, "cpu"))
+    total = rjd._device_total(*rjd._chain_inputs(pts, scalars, "cpu"))
     want = jj.ZERO
     for p, s in zip(pts, scalars):
         want = jj.add(want, jj.mul(p, s))
@@ -94,8 +96,8 @@ def test_device_total_is_the_mirror_sum(tamper_at):
 def test_chain_bits_are_the_scalars():
     scalars = [0, 1, S - 1, 0x123456789ABCDEF << 180]
     pts = [jj.generator(rj.DEFAULT_BASE)] * 4
-    _, bits = rj._chain_inputs(pts, scalars, "cpu")
-    assert tuple(bits.shape) == (rj.N_BITS, 4)
+    _, bits = rjd._chain_inputs(pts, scalars, "cpu")
+    assert tuple(bits.shape) == (rjd.N_BITS, 4)
     for j, v in enumerate(scalars):
         assert sum(int(b) << k for k, b in enumerate(bits[:, j].tolist())) == v
 

@@ -14,6 +14,7 @@ from zerochain_tpu_torch.ec import jubjub as ej
 from zerochain_tpu_torch.ff import limbs as L
 from zerochain_tpu_torch.mirror.field import S
 from zerochain_tpu_torch.protocol import redjubjub as rj
+from zerochain_tpu_torch.protocol import redjubjub_device as rjd
 
 N = 16
 ZS = [5 + 7 * i for i in range(N)]
@@ -56,7 +57,7 @@ CASES = {
 @pytest.mark.parametrize("case", list(CASES))
 def test_verdict_matches_jax(case):
     make, want = CASES[case]
-    got = rj.batch_verify_device(make(rj), rand_scalars=ZS, device="cpu")
+    got = rjd.batch_verify_device(make(rj), rand_scalars=ZS, device="cpu")
     jgot = jrj.batch_verify_device(make(jrj), rand_scalars=ZS)
     assert got == jgot == want
 
@@ -65,9 +66,9 @@ def test_term_multiplies_match_jax_scalar_mul_bits():
     """Every term z R_i, c z vk_i, -s z P_G of the tampered batch: the port's
     var chain (last step, projective) and the JAX 252-step double-and-add
     (extended) name the same affine points."""
-    pts, scalars = rj._terms(_sigs(rj, N, tamper_at=7), rj.DEFAULT_BASE, ZS)
+    pts, scalars = rjd._terms(_sigs(rj, N, tamper_at=7), rj.DEFAULT_BASE, ZS)
     m = len(pts)
-    bases, bits = rj._chain_inputs(pts, scalars, "cpu")
+    bases, bits = rjd._chain_inputs(pts, scalars, "cpu")
     _, res = cuda_jubjub.var_chain(bases, bits)
     X, Y, Z = res[:, :, -1]
     zi = L.FR.to_ints(Z, mont=True)

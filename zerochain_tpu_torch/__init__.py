@@ -11,6 +11,14 @@ The sub-packages carry the names of their counterparts in the JAX package:
 - ``prover``   witness synthesis and the proving pipeline
 - ``csrc``     the CUDA sources, built at first use by ``_build``
 - ``convert``  carries limb arrays and CRS caches over from the JAX package
+- ``runtime``  on-chain state machines (zk-system, balances, assets), SCALE
+- ``wallet``   HD derivation, encrypted keystore (AES-128-CTR of its own),
+  BIP39, SS58 addresses
+- ``tx``       proof drivers and signed-extrinsic builders
+- ``rpc``      JSON-RPC server and client over a runtime
+- ``native``   the host C codec (bigints <-> bit/limb planes), built by cc
+- ``utils``    stage timings and torch.profiler traces (``ZEROCHAIN_TRACE``)
+- ``cli``      the command line, ``python -m zerochain_tpu_torch``
 
 Entry points take an explicit ``device``; the default is the CUDA device,
 and only ``device="cpu"`` selects the CPU.

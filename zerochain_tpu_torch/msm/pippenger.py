@@ -15,12 +15,12 @@ with a precomputed (n_windows, 2^c) table + gather + log-depth tree add.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .. import _device
 from ..ec import cuda_ec
 from ..ec import weierstrass as W
+from ..native.codec import scalars_to_bits_np
 
 WINDOW_C = 8  # default window width in bits
 
@@ -55,20 +55,8 @@ def first_leaf(pt):
     return leaf[0] if isinstance(leaf, tuple) else leaf
 
 
-def scalars_to_bits_np(scalars, n_bits: int = 255) -> np.ndarray:
-    """ints (< 2^256) -> (n_bits, N) int32 LE bit planes (numpy)."""
-    n = len(scalars)
-    raw = b"".join(int(s).to_bytes(32, "little") for s in scalars)
-    sb = np.frombuffer(raw, dtype=np.uint8).reshape(n, 32)
-    bits = np.unpackbits(sb, axis=1, bitorder="little")  # (N, 256)
-    out = np.zeros((n_bits, n), dtype=np.int32)
-    take = min(n_bits, 256)
-    out[:take] = bits[:, :take].T
-    return out
-
-
 def scalars_to_bits(scalars, n_bits: int = 255, device=None) -> torch.Tensor:
-    """Host ints -> (n_bits, N) LE bit tensor."""
+    """Host ints -> (n_bits, N) LE bit tensor (the native codec's planes)."""
     return torch.from_numpy(scalars_to_bits_np(list(scalars), n_bits)).to(device)
 
 

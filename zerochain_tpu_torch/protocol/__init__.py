@@ -1,5 +1,6 @@
 """Zerochain protocol layer: keys, ElGamal and RedDSA (host Python, off the
-hot path, apart from the batch verifier's device path).  Mirrors the
+hot path; the batch verifier's device path is ``redjubjub_device``, which
+is not imported here, so that the package imports without torch).  Mirrors the
 reference's no_std_aliases/{keys,elgamal}.rs and core/jubjub/src/redjubjub.rs."""
 
 from .keys import (  # noqa: F401

@@ -15,7 +15,6 @@ batch of normalized proof points.  Mirrors bellman's create_random_proof pipelin
 from __future__ import annotations
 
 import os
-import time
 
 import numpy as np
 import torch
@@ -36,6 +35,7 @@ from ..msm import pippenger as pip
 from ..msm import suffix as smsm
 from ..ntt import plan_for
 from ..r1cs.system import ConstraintSystem
+from ..utils.profiling import StageRecorder, device_trace, trace_dir_from_env
 from . import witness as wit
 from . import witness_anon as wanon
 from . import witness_mini as wmini
@@ -95,7 +95,7 @@ class ConfidentialProver:
         self.m = cs.num_constraints
         self.d = dom.domain_size(self.m)
         self.plan = plan_for(self.d, dev)
-        self.sync_stages = False  # True: synchronize before each stage mark
+        self.sync_stages = False  # True: synchronize at the end of each stage
         self.last_timings: dict = {}
 
         if _device_queries is not None:
@@ -434,64 +434,65 @@ class ConfidentialProver:
         """assignments: per-proof witness dicts (witness_inputs_host).
         rs: per-proof (r, s) blinding scalars; drawn from os.urandom when
         None.  Stage wall-times land in ``self.last_timings`` (they bound
-        device work only when ``self.sync_stages`` is set)."""
-        timings: dict = {}
-        self.last_timings = timings
-        t_last = [time.perf_counter()]
+        device work only when ``self.sync_stages`` is set).  Set
+        ZEROCHAIN_TRACE=<dir> for a torch.profiler trace of the call."""
+        with device_trace(trace_dir_from_env()):
+            return self._prove_impl(assignments, rs)
 
-        def mark(name):
-            if self.sync_stages and self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            now = time.perf_counter()
-            timings[name] = now - t_last[0]
-            t_last[0] = now
+    def _prove_impl(self, assignments: list[dict], rs=None) -> list[Proof]:
+        def sync():
+            torch.cuda.synchronize(self.device)
+
+        rec = StageRecorder(
+            sync if self.sync_stages and self.device.type == "cuda" else None)
+        self.last_timings = rec.timings
 
         B = len(assignments)
-        inputs_host, witness_fn = self._witness_fns()
-        aux, public = witness_fn(**inputs_host(assignments, self.device))
-        mark("witness")
+        with rec.stage("witness"):
+            inputs_host, witness_fn = self._witness_fns()
+            aux, public = witness_fn(**inputs_host(assignments, self.device))
 
         # all five MSMs carry the whole proof batch B in one kernel pass
         # (the reference's bellman loops per proof; SURVEY.md §3.2) and
         # run at their dense (density-gathered) sizes
-        witness_mont, h_scalars = self._quotient(aux, public)
-        mark("quotient")
-        if self.msm_impl == "suffix":
-            ap, b1p, b2p, lp, hp = self._digits(witness_mont, h_scalars)
-            run = self._msm_chunked_suffix
-        else:
-            ap, b1p, b2p, lp, hp = self._bits(witness_mont, h_scalars)
-            run = self._msm_chunked
-        mark("digits")
-        a_acc = run(FqOps, self.a_chunks, ap)
-        mark("msm_a")
-        b1_acc = run(FqOps, self.b1_chunks, b1p)
-        mark("msm_b1")
-        b2_acc = run(Fq2Ops, self.b2_chunks, b2p)
-        mark("msm_b2")
-        l_acc = run(FqOps, self.l_chunks, lp)
-        mark("msm_l")
-        h_acc = run(FqOps, self.h_chunks, hp)
-        mark("msm_h")
+        with rec.stage("quotient"):
+            witness_mont, h_scalars = self._quotient(aux, public)
+        with rec.stage("digits"):
+            if self.msm_impl == "suffix":
+                ap, b1p, b2p, lp, hp = self._digits(witness_mont, h_scalars)
+                run = self._msm_chunked_suffix
+            else:
+                ap, b1p, b2p, lp, hp = self._bits(witness_mont, h_scalars)
+                run = self._msm_chunked
+        with rec.stage("msm_a"):
+            a_acc = run(FqOps, self.a_chunks, ap)
+        with rec.stage("msm_b1"):
+            b1_acc = run(FqOps, self.b1_chunks, b1p)
+        with rec.stage("msm_b2"):
+            b2_acc = run(Fq2Ops, self.b2_chunks, b2p)
+        with rec.stage("msm_l"):
+            l_acc = run(FqOps, self.l_chunks, lp)
+        with rec.stage("msm_h"):
+            h_acc = run(FqOps, self.h_chunks, hp)
 
-        if rs is None:
-            rs = [
-                (
-                    int.from_bytes(os.urandom(32), "little") % R,
-                    int.from_bytes(os.urandom(32), "little") % R,
-                )
-                for _ in range(B)
-            ]
-        dev = self.device
-        r_bits = pip.scalars_to_bits([r for r, _ in rs], 255, dev)
-        s_bits = pip.scalars_to_bits([s for _, s in rs], 255, dev)
-        rs_bits = pip.scalars_to_bits([r * s % R for r, s in rs], 255, dev)
+        with rec.stage("assemble"):
+            if rs is None:
+                rs = [
+                    (
+                        int.from_bytes(os.urandom(32), "little") % R,
+                        int.from_bytes(os.urandom(32), "little") % R,
+                    )
+                    for _ in range(B)
+                ]
+            dev = self.device
+            r_bits = pip.scalars_to_bits([r for r, _ in rs], 255, dev)
+            s_bits = pip.scalars_to_bits([s for _, s in rs], 255, dev)
+            rs_bits = pip.scalars_to_bits([r * s % R for r, s in rs], 255, dev)
 
-        coords = self._assemble(
-            a_acc, b1_acc, b2_acc, l_acc, h_acc, r_bits, s_bits, rs_bits
-        )
-        vals = FQ.to_ints(coords.movedim(0, 1), mont=True)  # 8 * B ints
-        mark("assemble")
+            coords = self._assemble(
+                a_acc, b1_acc, b2_acc, l_acc, h_acc, r_bits, s_bits, rs_bits
+            )
+            vals = FQ.to_ints(coords.movedim(0, 1), mont=True)  # 8 * B ints
 
         proofs = []
         for b in range(B):

@@ -25,7 +25,7 @@ from ..ec import jubjub as ej
 from ..ff import limbs as L
 from ..mirror import jubjub as mjj
 from ..mirror.field import R
-from ..msm.pippenger import scalars_to_bits_np
+from ..native.codec import scalars_to_bits_np
 
 FR = L.FR
 

@@ -14,7 +14,7 @@ process.  Prints the card's name and power limit, then JSON lines:
   batch: one warm call, then ``--reps`` timed ones (host clock around a
   synchronize), each with its K1 launches by op, the results checked equal
   across the calls and, once, against the mirror;
-- ``reddsa`` (unless --no-reddsa): ``protocol.redjubjub.batch_verify_device``
+- ``reddsa`` (unless --no-reddsa): ``protocol.redjubjub_device.batch_verify_device``
   on chip_smoke's block of REDDSA_BLOCK signatures, one warm call, then
   ``--reps`` timed ones, seconds split host / device.
 
@@ -51,7 +51,7 @@ def main() -> int:
     from zerochain_tpu_torch.ff import cuda_ff
     from zerochain_tpu_torch.mirror import curves as C
     from zerochain_tpu_torch.mirror import pairing as P
-    from zerochain_tpu_torch.protocol import redjubjub as rj
+    from zerochain_tpu_torch.protocol import redjubjub_device as rjd
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -82,15 +82,15 @@ def main() -> int:
     if args.no_reddsa:
         return 0
     block, zs = chip_smoke.reddsa_block(chip_smoke.REDDSA_BLOCK)
-    rj.batch_verify_device(block, rand_scalars=zs)
+    rjd.batch_verify_device(block, rand_scalars=zs)
     for _ in range(args.reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ok = rj.batch_verify_device(block, rand_scalars=zs)
+        ok = rjd.batch_verify_device(block, rand_scalars=zs)
         secs = time.perf_counter() - t0
         emit(kernel="reddsa", block=len(block), seconds=secs, accepted=ok,
-             host_seconds=rj.last_timings["host"],
-             device_seconds=rj.last_timings["device"])
+             host_seconds=rjd.last_timings["host"],
+             device_seconds=rjd.last_timings["device"])
     return 0
 
 
