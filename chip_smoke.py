@@ -9,6 +9,8 @@
     python3 chip_smoke.py --verify-only  # the build and the phases reddsa and
                                          # pairing alone
     python3 chip_smoke.py --cli-only   # the build and the cli phase alone
+    python3 chip_smoke.py --dist-only  # the build, crs, prove and the dist
+                                       # phase alone
 
 Phases, each printing one JSON line when it ends; any failure raises and the
 run exits non-zero (there is no CPU fallback):
@@ -26,7 +28,11 @@ run exits non-zero (there is no CPU fallback):
            tail's split_lanes / split_tail also on the digits of the batch
            the prove phases prove; the field inverse and
            the Jubjub chains at the witness stage's shapes, the chains also
-           against their former loop of field-kernel launches)
+           against their former loop of field-kernel launches; window_totals,
+           split_lanes / split_tail, bucket_sums, bucket_fold and Horner at
+           window widths c = 4 and c = 10 on 2,048 CRS points (launches 0);
+           and the bucket MSM's 'assoc' mode against 'hs' there, line
+           msm_assoc)
   prove    one batch of 32 proofs (warm run, then a timed run with the launch
            counters zeroed just before and read just after)
   prove_hs     the same batch through the bucket MSM (msm_impl="hs": per
@@ -42,6 +48,19 @@ run exits non-zero (there is no CPU fallback):
                window_totals, launch each split kernel once for every MSM
                chunk, and make as many point-op launches as prove's (no
                point add of its own)
+  dist     the same batch with ZEROCHAIN_DIST=1 in an NCCL world of one
+           (torch.distributed over a file store, no network), on the same
+           CRS: phases dist_prove, dist_prove_split and dist_prove_hs, each
+           a warm and a timed prove as above; their proofs must equal
+           prove's, each path launch its MSM kernels for every chunk, and
+           the timed run make one all-to-all a transform (seven) and one
+           all-gather a transform and an MSM chunk.  Then
+           DistNtt.quotient at the prover's d against NttPlan's chain
+           (word for word) and sharded_suffix on the A query's first chunk
+           (the batch's raw digits) against window_partials (after
+           normalisation); seconds, launches and the collectives' count and
+           bytes; the group destroyed.  Also under --mini; alone with
+           --dist-only (after crs and prove).
   backend  groth16.core.generate_parameters and create_proof through
            TorchBackend on the card: the same verifying key as the CRS phase,
            and create_proof on assignment 0 equal to prove's proof 0; the
@@ -433,6 +452,7 @@ def phase_kernels(prover, B, gen, assignments):
     entries += hs_entries(prover, B, gen)
     entries += column_scan_entries(prover, B, gen)
     entries += split_entries(prover, B, gen, assignments)
+    entries += width_entries(prover, gen)
     return entries
 
 
@@ -1193,6 +1213,94 @@ def split_entries(prover, B, gen, assignments):
     return out
 
 
+# window widths besides the paths' c = 8
+WIDTHS = (4, 10)
+WIDTH_POINTS = 2048  # two depths a split lane
+WIDTH_PROOFS = 2
+
+
+def width_entries(prover, gen):
+    """The MSM kernels at window widths c = 4 and c = 10 (the paths run c =
+    8; ZEROCHAIN_MSM_C / ZEROCHAIN_MSM_SUFFIX_C choose others), G1 and G2,
+    on 2,048 CRS points (tiled under --mini) and uniform scalars of 2
+    proofs, every program checked: window_totals and split_lanes /
+    split_tail on signed digits (nb = 2^(c-1) + 1: 9 and 513 buckets),
+    bucket_sums and bucket_fold on unsigned ones (2^c: 16 and 1,024), Horner
+    at c on CRS sums of nw x 2 windows.  No path launches these widths: the
+    entries are off_path with launches 0."""
+    from zerochain_tpu_torch.ec import cuda_ec
+    from zerochain_tpu_torch.ec import weierstrass as W
+    from zerochain_tpu_torch.ec.fields import FqOps, Fq2Ops
+    from zerochain_tpu_torch.ff import limbs as L
+    from zerochain_tpu_torch.msm import pippenger as pip
+    from zerochain_tpu_torch.msm.suffix import SuffixMsm
+
+    mini = not prover.msm_g1.column_split(pip.first_leaf(prover.h_chunks[0]).shape[-1])
+    dev = prover.device
+    n, B = WIDTH_POINTS, WIDTH_PROOFS
+    out = []
+    for F, chunk, tag in ((FqOps, prover.h_chunks[0], "g1"),
+                          (Fq2Ops, prover.b2_chunks[0], "g2")):
+        reps = -(-n // pip.first_leaf(chunk).shape[-1])
+        pts = pip.tmap(lambda t: t.repeat(1, reps)[:, :n].contiguous(), chunk)
+        scal = random_elements(L.FR, (n, B), gen)
+        words = 3 * F.ncomp * 12
+        # the bucket MSM's 'assoc' mode (K2 adds, no kernel of its own)
+        # against 'hs' at c = 8, after normalisation
+        bits = pip.limbs_to_bits(scal, 255)
+        got = {}
+        for mode in pip.SCAN_MODES:
+            got[mode], got[mode + "_ms"] = timed(
+                lambda mode=mode: pip.Msm(F, c=8, mode=mode)(pts, bits))
+        err = max_abs_err(leaves_of(W.normalize(F, got["assoc"])),
+                          leaves_of(W.normalize(F, got["hs"])))
+        emit("msm_assoc", group=tag, points=n, proofs=B, c=8, max_abs_err=err,
+             assoc_ms=got["assoc_ms"], hs_ms=got["hs_ms"])
+        if err:
+            raise SystemExit(f"Msm 'assoc' differs from 'hs' ({tag}) by {err}")
+        for c in WIDTHS:
+            wt = f"{tag}.c{c}"
+            suf = SuffixMsm(F, c=c, signed=True)
+            sd, od = suf.prep(suf.digits(scal))
+            out.append(totals_entry(F, suf, [pts], [(sd, od)], wt))
+            rows = torch.arange(sd[..., 0].numel(), device=dev)
+            out += split_entry(F, [(pts, (sd, od))], suf.nb, wt, rows, mini)
+
+            bm = pip.Msm(F, c=c)
+            nb = 1 << c
+            ks, ko = bm.rows(pip.limbs_to_bits(scal, 255))
+            out.append(bucket_sums_entry(F, [(pts, (ks, ko))], nb, wt,
+                                         torch.arange(ks.shape[0], device=dev),
+                                         B))
+            bk = cuda_ec.bucket_sums(F, pts, ks, ko, nb)
+            M = ks.shape[0]
+            out.append(chain_entry(
+                F, f"ec.bucket_fold.{wt}", f"{tag}_bucket_fold", [12, M, nb],
+                lambda lanes=None, bk=bk: cuda_ec.bucket_fold(F, bk, lanes=lanes),
+                lambda bk=bk: cuda_ec.bucket_fold_plain(F, bk),
+                n_bytes=words * 4 * M * (nb + 1),
+                n_ops=M * 2 * (nb - 1) * group_op_ops(F.ncomp, "add")))
+
+            nw = bm.n_windows
+            idx = torch.arange(nw * B, device=dev) % n
+            tot = W.add(F, pip.tmap(lambda t: t[:, idx].reshape(12, nw, B), pts),
+                        pip.tmap(lambda t: t[:, (idx * 7 + 3) % n]
+                                 .reshape(12, nw, B), pts))
+            out.append(chain_entry(
+                F, f"ec.horner.{wt}", f"{tag}_horner", [12, nw, B],
+                lambda lanes=None, tot=tot, c=c: cuda_ec.horner(F, tot, c,
+                                                                lanes=lanes),
+                lambda tot=tot, c=c: cuda_ec.horner_plain(F, tot, c),
+                n_bytes=(nw + 1) * words * 4 * B,
+                n_ops=(nw - 1) * B * (c * group_op_ops(F.ncomp, "double")
+                                      + group_op_ops(F.ncomp, "add"))))
+    for e in out:
+        e["window_c"] = int(e["name"].rsplit(".c", 1)[1])
+        e["counter"], e["off_path"] = None, True
+        e.pop("path", None)
+    return out
+
+
 def phase_profile(prover, assignments, rs, timed_seconds, path):
     """One more prove of the path under torch.profiler (profile_call)."""
     profile_call(lambda: prover.prove(assignments, rs=rs), timed_seconds, path)
@@ -1454,13 +1562,16 @@ def anon_msm_entries(prover, B, assignments):
 
 
 def reset_counters():
-    """Zero every kernel wrapper's launch count."""
+    """Zero every kernel wrapper's launch count and the dist collectives'
+    counts."""
+    from zerochain_tpu_torch.dist import comm
     from zerochain_tpu_torch.ec import cuda_ec, cuda_jubjub
     from zerochain_tpu_torch.ff import cuda_ff
     from zerochain_tpu_torch.msm import cuda_scan
 
     for mod in (cuda_ff, cuda_ec, cuda_scan, cuda_jubjub):
         mod.reset_launches()
+    comm.reset_stats()
 
 
 def drive(p, phase, assignments, rs, B, counters):
@@ -1529,6 +1640,134 @@ def prove_paths(prover, cls, assignments, rs, B, prefix, profile, counters,
         if ints_of(path_proofs[name]) != ints_of(proofs):
             raise SystemExit(f"{phase}: the proofs differ from {prefix}prove's")
     return proofs, path_proofs
+
+
+def open_world():
+    """An NCCL world of one on card 0, over a file store in a fresh
+    temporary directory (no network) -> that directory."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    tmp = tempfile.mkdtemp(prefix="zc_dist_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=300))
+    return tmp
+
+
+def check_dist_launches(p, name, counts, coll):
+    """A timed dist run launched its MSM kernels for every chunk (window
+    totals, the split kernels or the bucket kernels) and made one
+    all-to-all a distributed transform (7 in the quotient) and one
+    all-gather a transform and an MSM chunk."""
+    from zerochain_tpu_torch.msm import pippenger as pip
+
+    chunks = {"g1": [c for q in (p.a_chunks, p.b1_chunks, p.l_chunks,
+                                 p.h_chunks) for c in q],
+              "g2": list(p.b2_chunks)}
+    # at n = 1 every d >= 2 n^2: the quotient's 7 transforms are distributed
+    want = {"all_to_all": 7,
+            "all_gather": 7 + len(chunks["g1"]) + len(chunks["g2"])}
+    got = {k: coll[k] for k in want}
+    if got != want:
+        raise SystemExit(f"{name}: collectives {got}, expected {want}")
+    split = p.msm_impl == "suffix" and p.msm_g1.tail == "split"
+    if p.msm_impl == "hs":
+        keys = ("ec", "{}_bucket_sums"), ("ec", "{}_bucket_fold")
+    elif split:  # only chunks of a power-of-two multiple of 1024 points
+        keys = ("scan", "{}_split_lanes"), ("scan", "{}_split_tail")
+    else:
+        keys = (("scan", "{}_window_totals"),)
+    for g, chs in chunks.items():
+        n = sum(not split or p.msm_g1.column_split(pip.first_leaf(c).shape[-1])
+                for c in chs)
+        for grp, key in keys:
+            if counts[grp][key.format(g)] < n:
+                raise SystemExit(f"{name}: {key.format(g)} launched "
+                                 f"{counts[grp][key.format(g)]} times for {n} "
+                                 "chunks")
+
+
+def phase_dist(prover, cls, assignments, rs, B, proofs, counters, path_counts):
+    """The dist phases (module docstring): the batch with ZEROCHAIN_DIST=1
+    through the three MSM paths in an NCCL world of one, then DistNtt and
+    sharded_suffix against their single-device counterparts."""
+    import os
+    import shutil
+
+    import torch.distributed as dist
+
+    from zerochain_tpu_torch.dist import comm, dist_plan_for, sharded_suffix
+    from zerochain_tpu_torch.ec import weierstrass as W
+    from zerochain_tpu_torch.ec.fields import FqOps
+    from zerochain_tpu_torch.ff import limbs as L
+    from zerochain_tpu_torch.ntt import quotient
+
+    tmp = open_world()
+    os.environ["ZEROCHAIN_DIST"] = "1"
+    try:
+        for name, opts in (("dist_prove", {}),
+                           ("dist_prove_split", dict(msm_tail="split")),
+                           ("dist_prove_hs", dict(msm_impl="hs"))):
+            p = cls(None, _device_queries=prover._raw_queries, _vk=prover.vk,
+                    **opts)
+            if not (p.dist and p.world_size == 1):
+                raise SystemExit(f"{name}: the prover is not in dist mode")
+            got, secs, path_counts[name], _ = drive(p, name, assignments, rs,
+                                                    B, counters)
+            coll = dict(comm.stats)
+            check_dist_launches(p, name, path_counts[name], coll)
+            if ints_of(got) != ints_of(proofs):
+                raise SystemExit(f"{name}: the proofs differ from prove's")
+            emit(name + "_collectives", seconds=secs, collectives=coll,
+                 world_size=dist.get_world_size(),
+                 backend=str(dist.get_backend()), proofs_equal_prove=True)
+            if name == "dist_prove":
+                dist_prover = p
+            else:
+                del p
+
+        # DistNtt.quotient against NttPlan's chain, word for word
+        p, d = dist_prover, dist_prover.d
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(10)
+        evs = [random_elements(L.FR, (B, d), gen) for _ in range(3)]
+        dn = dist_plan_for(d, device=p.device)
+        reset_counters()
+        got, ms = timed(lambda: dn.quotient(*evs))
+        coll = dict(comm.stats)
+        want, plain_ms = timed(lambda: quotient(p.plan, *evs))
+        err = max_abs_err([got], [want])
+        if err:
+            raise SystemExit(f"dist: DistNtt.quotient differs from NttPlan by {err}")
+
+        # sharded_suffix on the A query's first chunk, the batch's raw digits
+        inputs_host, witness_fn = p._witness_fns()
+        wm, hs = p._quotient(*witness_fn(**inputs_host(assignments, p.device)))
+        raw = p._digits(wm, hs)[0][0]
+        chunk = p.a_chunks[0]
+        msm = p.msm_g1
+        reset_counters()
+        part, s_ms = timed(lambda: sharded_suffix(msm, chunk, raw))
+        s_coll = dict(comm.stats)
+        one, one_ms = timed(lambda: msm.window_partials(chunk, prep=msm.prep(raw)))
+        gx, gy, ginf = W.normalize(FqOps, part)
+        wx, wy, winf = W.normalize(FqOps, one)
+        s_err = max_abs_err([gx, gy, ginf], [wx, wy, winf])
+        if s_err:
+            raise SystemExit(f"dist: sharded_suffix differs from window_partials by {s_err}")
+        emit("dist", d=d, split=[dn.d1, dn.d2], quotient_ms=ms,
+             quotient_single_device_ms=plain_ms, quotient_max_abs_err=err,
+             quotient_collectives=coll, sharded_suffix_ms=s_ms,
+             window_partials_ms=one_ms, sharded_suffix_max_abs_err=s_err,
+             sharded_suffix_shape=list(raw.shape),
+             sharded_suffix_collectives=s_coll)
+    finally:
+        os.environ.pop("ZEROCHAIN_DIST", None)
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def phase_verify(prover, assignments, proofs, others, B, n_public, phase):
@@ -1602,6 +1841,7 @@ def confidential_phases(mini, profile, gen, counters, path_counts):
     cls = MiniProver if mini else ConfidentialProver
     proofs, path_proofs = prove_paths(prover, cls, assignments, rs, B, "",
                                       profile, counters, path_counts)
+    phase_dist(prover, cls, assignments, rs, B, proofs, counters, path_counts)
 
     # ---- groth16.core through the card's backend ----------------------
     t0 = time.time()
@@ -1639,6 +1879,28 @@ def confidential_phases(mini, profile, gen, counters, path_counts):
                   "backend": (backend_proof, 0)},
                  B, prover.num_inputs - 1, "verify")
     return entries, proofs
+
+
+def dist_only_phases(counters, path_counts):
+    """--dist-only: crs and one warm and one timed prove on
+    ConfidentialTransfer (the proofs the dist paths must give), then the
+    dist phase."""
+    from zerochain_tpu_torch.mirror.field import R
+    from zerochain_tpu_torch.prover import ConfidentialProver
+
+    B = 32
+    t0 = time.time()
+    prover = ConfidentialProver.from_toxic_waste(**TOXIC)
+    torch.cuda.synchronize()
+    emit("crs", seconds=time.time() - t0, constraints=prover.m,
+         domain=prover.d)
+    assignments = assignments_for(B, False)
+    rs = [((0xA5A5 + 977 * i) * 0x9E3779B97F4A7C15 % R,
+           (0x5A5A + 613 * i) * 0xC2B2AE3D27D4EB4F % R) for i in range(B)]
+    proofs, _, path_counts["prove"], _ = drive(prover, "prove", assignments,
+                                               rs, B, counters)
+    phase_dist(prover, ConfidentialProver, assignments, rs, B, proofs,
+               counters, path_counts)
 
 
 def anonymous_phases(profile, gen, counters, path_counts):
@@ -2136,14 +2398,18 @@ def main() -> int:
     ap.add_argument("--cli-only", action="store_true",
                     help="run the build and the cli phase (the command "
                          "line's wallet -> setup -> transfer flow) alone")
+    ap.add_argument("--dist-only", action="store_true",
+                    help="run the build, crs, prove and the dist phase "
+                         "(ZEROCHAIN_DIST=1 in an NCCL world of one) alone")
     ap.add_argument("--profile", action="store_true",
                     help="after each path's timed run, prove once more "
                          "under torch.profiler and print the card's idle "
                          "share")
     args = ap.parse_args()
-    if args.mini + args.anon_only + args.verify_only + args.cli_only > 1:
-        ap.error("--mini, --anon-only, --verify-only and --cli-only exclude "
-                 "each other")
+    if (args.mini + args.anon_only + args.verify_only + args.cli_only
+            + args.dist_only) > 1:
+        ap.error("--mini, --anon-only, --verify-only, --cli-only and "
+                 "--dist-only exclude each other")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script only runs on the GPU",
@@ -2187,24 +2453,27 @@ def main() -> int:
     path_counts = {}
     entries = []
     proofs = None
-    only = args.anon_only or args.verify_only or args.cli_only
+    only = args.anon_only or args.verify_only or args.cli_only or args.dist_only
+    if args.dist_only:
+        dist_only_phases(counters, path_counts)
     if not only:
         conf, proofs = confidential_phases(args.mini, args.profile, gen,
                                            counters, path_counts)
         entries += conf
-    if not (args.mini or args.verify_only or args.cli_only):
+    if not (args.mini or args.verify_only or args.cli_only or args.dist_only):
         torch.cuda.empty_cache()  # the confidential prover is gone
         entries += anonymous_phases(args.profile, gen, counters, path_counts)
-    if not (args.anon_only or args.cli_only):
+    if not (args.anon_only or args.cli_only or args.dist_only):
         torch.cuda.empty_cache()
         entries += verify_phases(proofs, args.profile, gen, counters, path_counts)
-    if not (args.mini or args.anon_only or args.verify_only):
+    if not (args.mini or args.anon_only or args.verify_only or args.dist_only):
         torch.cuda.empty_cache()
         phase_cli(counters)
 
     for e in entries:
-        grp, key = e.pop("counter")
-        e["launches"] = path_counts[e.get("path", "prove")][grp][key]
+        counter = e.pop("counter")  # None: a shape no path runs
+        e["launches"] = 0 if counter is None else (
+            path_counts[e.get("path", "prove")][counter[0]][counter[1]])
     idle = [e["name"] for e in entries
             if not e.get("off_path") and e["launches"] == 0]
     if idle:
@@ -2223,12 +2492,13 @@ def main() -> int:
     # time over them; k1_loop_ms: a Jubjub chain as its former loop of
     # field-kernel launches; chunk, heaviest_bucket_g1 / _g2: the anonymous
     # chunk an entry ran on, and the batch's largest bucket over all chunks;
-    # plain_lanes: the lanes the plain version ran on (its plain_ms)
+    # plain_lanes: the lanes the plain version ran on (its plain_ms);
+    # window_c: an MSM kernel's window width where it is not the paths' 8
     extras = ("eager_ms", "one_lane_ms", "nonzero_digits", "row_nonzero_q",
               "n_madd", "n_add", "heaviest_bucket", "heaviest_at", "rows_checked",
               "path", "off_path", "serial_mul", "us_per_mul", "k1_loop_ms",
               "chunk", "heaviest_bucket_g1", "heaviest_bucket_g2",
-              "plain_lanes")
+              "plain_lanes", "window_c")
     print(json.dumps({"kernels": [
         {**{k: e[k] for k in keys}, **{k: e[k] for k in extras if k in e}}
         for e in entries]}), flush=True)

@@ -33,6 +33,8 @@ def test_mini_prover_hs_gives_the_bigint_proof(monkeypatch, params):
     from zerochain_tpu_torch.prover import MiniProver
 
     monkeypatch.setenv("ZEROCHAIN_MSM_CHUNK", "256")
+    # the prover's default width c = 8 (conftest sets ZEROCHAIN_MSM_C=4)
+    monkeypatch.setattr(pip, "WINDOW_C", 8)
     prover = MiniProver(params, device="cpu", msm_impl="hs")
     assert isinstance(prover.msm_g2, pip.Msm) and prover.msm_g2.c == 8
     (got,) = prover.prove([ASSIGNMENT], rs=[RS])
@@ -48,6 +50,7 @@ def test_msm_options_read_the_env(monkeypatch, params):
     from zerochain_tpu_torch.prover import MiniProver
 
     monkeypatch.setenv("ZEROCHAIN_MSM_IMPL", "hs")
+    monkeypatch.setattr(pip, "WINDOW_C", 8)  # the default; conftest sets 4
     prover = MiniProver(params, device="cpu")
     assert prover.msm_impl == "hs" and isinstance(prover.msm_g1, pip.Msm)
     assert prover.msm_g1.n_windows == 32

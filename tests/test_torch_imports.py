@@ -27,9 +27,9 @@ def _modules():
     return mods
 
 
-def test_every_module_imports_without_jax():
-    mods = _modules()
-    assert len(mods) > 30
+def _import_blocked(mods):
+    """Import mods in a fresh interpreter with jax, jaxlib and zerochain_tpu
+    made unimportable; assert that none of them got in."""
     code = (
         "import sys, importlib\n"
         "class Block:\n"
@@ -49,6 +49,22 @@ def test_every_module_imports_without_jax():
     assert "imported" in out.stdout
 
 
+def test_every_module_imports_without_jax():
+    mods = _modules()
+    assert len(mods) > 30
+    _import_blocked(mods)
+
+
+def test_dist_imports_without_jax():
+    """The multi-device package (torch.distributed) stands alone too."""
+    mods = [m for m in _modules() if m.startswith("zerochain_tpu_torch.dist")]
+    assert set(mods) == {"zerochain_tpu_torch.dist",
+                         "zerochain_tpu_torch.dist.comm",
+                         "zerochain_tpu_torch.dist.msm",
+                         "zerochain_tpu_torch.dist.ntt"}
+    _import_blocked(mods)
+
+
 def test_sources_do_not_name_jax():
     pat = re.compile(r"^\s*(import jax|from jax|from zerochain_tpu[ .]|"
                      r"import zerochain_tpu[ .\n])|zerochain_tpu\.[a-z_]+\.",
@@ -63,7 +79,8 @@ def test_sources_do_not_name_jax():
     assert not bad, bad
 
 
-@pytest.mark.parametrize("what", ["plan", "matrices", "fixed_base", "prover",
+@pytest.mark.parametrize("what", ["plan", "dist_ntt", "matrices", "fixed_base",
+                                  "prover",
                                   "backend", "host_msm", "batch_verify",
                                   "pairing", "cli_setup", "cli_setup_default",
                                   "cli_send_default", "key_context_setup"])
@@ -71,6 +88,7 @@ def test_default_device_raises_without_cuda(what):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device exists")
     from zerochain_tpu_torch import cli
+    from zerochain_tpu_torch.dist import DistNtt
     from zerochain_tpu_torch.ec.fields import FqOps
     from zerochain_tpu_torch.ec.pairing import pairing_host
     from zerochain_tpu_torch.models.confidential import ConfidentialTransfer
@@ -87,6 +105,7 @@ def test_default_device_raises_without_cuda(what):
 
     make = {
         "plan": lambda: NttPlan(8),
+        "dist_ntt": lambda: DistNtt(4, 4),
         "matrices": lambda: ConstraintMatrices(ConstraintSystem(), 1),
         "fixed_base": lambda: FixedBaseMsm(FqOps, cv.G1_GEN),
         "prover": lambda: MiniProver.from_toxic_waste(1, 2, 3, 4, 5),

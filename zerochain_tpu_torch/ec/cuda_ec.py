@@ -399,6 +399,8 @@ def ladder(F, base_jac, bits, lanes=None):
 def horner(F, totals, c: int, lanes=None):
     """Window totals (leaves (12, nw, *batch)) -> res = 2^c * res + T[w],
     MSB first, in one launch."""
+    if c < 0:
+        raise ValueError(f"horner takes a window width c >= 0, got {c}")
     kind = _device_type(F, totals)
     if kind == "cpu":
         return horner_plain(F, totals, c)
@@ -574,6 +576,9 @@ def bucket_sums(F, points, keys_s, order, nb: int):
     """See the module docstring.  points: leaves (12, N), any Z; keys_s,
     order: (*lead, N) int32, keys ascending in [0, nb) along each row.
     -> Jacobian leaves (12, *lead, nb)."""
+    if not 1 <= nb <= 1 << 30:
+        raise ValueError(f"bucket_sums takes 1 <= nb <= 2^30 buckets (keys of "
+                         f"at most 30 bits), got nb={nb}")
     planes = _planes(F, points)
     dev = planes[0].device
     N = order.shape[-1]

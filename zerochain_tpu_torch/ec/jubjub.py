@@ -140,6 +140,19 @@ def normalize(pt):
     return (mul(X, zinv), mul(Y, zinv))
 
 
+def normalize_many(points):
+    """Normalise a list of extended point batches of one shape with ONE
+    inversion (one ``cuda_ff.inv`` launch over all their Z), then two
+    multiplies each -> [(x, y), ...] Montgomery word tensors."""
+    zs = torch.stack([p[2].reshape(FR.n, -1) for p in points], dim=1)
+    zinv = L.batch_inv_mont(FR, zs.reshape(FR.n, -1), axis=1).reshape(zs.shape)
+    out = []
+    for i, (X, Y, Z, _) in enumerate(points):
+        zi = zinv[:, i].reshape(Z.shape)
+        out.append((mul(X, zi), mul(Y, zi)))
+    return out
+
+
 # ---------------------------------------------------------------------
 # scalar multiplication
 # ---------------------------------------------------------------------

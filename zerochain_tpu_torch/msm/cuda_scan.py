@@ -139,6 +139,12 @@ def _fn():
     return fn
 
 
+# The largest nb window_totals takes: the kernel multiplies a running sum by
+# a magnitude drop with a double-and-add from bit 30 down
+# (csrc/totals_kernel.cu, jac_small_mul), so |digit| < 2^31 would do; the
+# plain version's 2^30 thresholds are the tighter limit.
+MAX_NB = 1 << 30
+
 # Non-zero digits a thread takes at least before its row gets more warps
 # (csrc/totals_kernel.cu: one warp up to 32 * MIN_RUN, two up to twice that,
 # else four).
@@ -185,6 +191,9 @@ def _point_of(F, outs):
 def window_totals(F, points, sorted_digits, order, nb: int):
     """See the module docstring.  points: leaves (12, N) with Z in {0, one};
     sorted_digits, order: (*lead, N) int32.  -> Jacobian leaves (12, *lead)."""
+    if not 2 <= nb <= MAX_NB:
+        raise ValueError(f"window_totals takes 2 <= nb <= 2^30 (digits of at "
+                         f"most 30 bits and a sign), got nb={nb}")
     planes = _checked_planes(F, points, sorted_digits, order)
     dev = planes[0].device
     N = order.shape[-1]

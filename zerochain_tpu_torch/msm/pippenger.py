@@ -15,6 +15,8 @@ with a precomputed (n_windows, 2^c) table + gather + log-depth tree add.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from .. import _device
@@ -22,7 +24,12 @@ from ..ec import cuda_ec
 from ..ec import weierstrass as W
 from ..native.codec import scalars_to_bits_np
 
-WINDOW_C = 8  # default window width in bits
+# default window width in bits; ZEROCHAIN_MSM_C sets it, as in the JAX package
+WINDOW_C = int(os.environ.get("ZEROCHAIN_MSM_C", "8"))
+SCAN_MODES = ("hs", "assoc")
+# sorted points x coordinate components that one pass of the 'assoc' scan
+# holds (its temporaries are a few times that)
+_ASSOC_SLAB = 1 << 22
 
 
 def tmap(fn, pt):
@@ -161,20 +168,40 @@ class Msm:
 
     Digits are unsigned c-bit windows: 2^c buckets, bucket 0 ignored.  A
     row is one window of one proof.  All rows are sorted in one
-    ``torch.sort`` and go through one ``bucket_sums`` and one
-    ``bucket_fold`` call: on the card one launch each, with no slabs (at
-    1,024 rows of 16,384 points the digits, the sorted keys and the order
-    take a few hundred MB by their shapes); on the CPU the plain versions,
-    ``bucket_sums_plain`` in slabs of rows.  Rows are independent, so the
-    words are the JAX ``Msm``'s, whatever its window group.  The JAX
-    package's second scan mode, 'assoc', is not ported.  Tensors decide the
-    device."""
+    ``torch.sort``.  ``mode`` picks how a row's buckets are formed and
+    folded; None reads ``ZEROCHAIN_MSM_SCAN`` ("hs" where it is unset), as
+    the JAX package does.  Both modes give the same points.
 
-    def __init__(self, field, c: int | None = None, n_bits: int = 255):
+    - ``"hs"``: one ``bucket_sums`` and one ``bucket_fold`` call for all
+      rows: on the card one launch each, with no slabs (at 1,024 rows of
+      16,384 points the digits, the sorted keys and the order take a few
+      hundred MB by their shapes); on the CPU the plain versions,
+      ``bucket_sums_plain`` in slabs of rows.
+    - ``"assoc"``: the JAX package's work-efficient variant, with no kernel
+      of its own: a segmented prefix scan of each sorted row
+      (``scans.segmented_prefix_scan``, about 2N adds), the scatter of each
+      run's last prefix into its bucket, a suffix scan of the buckets and a
+      tree sum of the suffixes, every add a K2 launch (``W.add``); in slabs
+      of rows, as the JAX package takes a window group at a time.
+
+    Rows are independent, so on the CPU the 'hs' words are the JAX
+    ``Msm``'s, whatever its window group; 'assoc' adds in another order than
+    JAX's ``associative_scan``: compare its points after ``normalize``.
+    Tensors decide the device."""
+
+    def __init__(self, field, c: int | None = None, n_bits: int = 255,
+                 mode: str | None = None):
         self.F = field
         self.c = WINDOW_C if c is None else c
+        if not 1 <= self.c <= 30:
+            raise ValueError(f"Msm takes windows of 1 to 30 bits, got c={self.c}")
         self.n_bits = n_bits
         self.n_windows = -(-n_bits // self.c)
+        if mode is None:
+            mode = os.environ.get("ZEROCHAIN_MSM_SCAN", "") or "hs"
+        if mode not in SCAN_MODES:
+            raise ValueError(f"unknown MSM scan mode {mode!r}; one of {SCAN_MODES}")
+        self.mode = mode
 
     def rows(self, bits):
         """bits (n_bits, N, *B) -> every (window, proof) row of the MSM as
@@ -188,9 +215,43 @@ class Msm:
     def _window_total(self, points, keys_s, order):
         """points: leaves (12, N); keys_s, order: (K, N) sorted rows -> the
         K sums sum_i keys[k, i] * P_i, leaves (12, K)."""
+        if self.mode == "assoc":
+            return self._window_total_assoc(points, keys_s, order)
         buckets = cuda_ec.bucket_sums(self.F, points, keys_s, order,
                                       1 << self.c)
         return cuda_ec.bucket_fold(self.F, buckets)
+
+    def _window_total_assoc(self, points, keys_s, order):
+        """``_window_total`` in the 'assoc' mode (JAX
+        ``Msm._window_total``): sorted points, a segmented prefix scan, each
+        run's last prefix scattered into its bucket, then sum_v v * B_v =
+        sum_{v>=1} S_v with S_v = sum_{u>=v} B_u, the suffixes by a prefix
+        scan of the reversed buckets and summed as a tree."""
+        from .scans import prefix_scan, segmented_prefix_scan, tree_sum_last
+
+        F = self.F
+        K, N = order.shape
+        slab = max(1, _ASSOC_SLAB // (N * F.ncomp))
+        if K > slab:  # bound the temporaries: slabs of rows
+            return tcat([self._window_total_assoc(points, keys_s[k: k + slab],
+                                                  order[k: k + slab])
+                         for k in range(0, K, slab)], 1)
+        nb = 1 << self.c
+        dev = order.device
+        idx = order.reshape(-1).to(torch.int64)
+        pts = tmap(lambda a: a.index_select(1, idx).reshape(12, K, N), points)
+        edge = keys_s[:, 1:] != keys_s[:, :-1]
+        head = torch.ones((K, 1), dtype=torch.bool, device=dev)
+        prefix = segmented_prefix_scan(F, pts, torch.cat([head, edge], -1))
+        # each run's last prefix into its bucket; other positions -> a dummy
+        # slot that is cut off
+        slot = torch.where(torch.cat([edge, head], -1), keys_s, nb)
+        slot = slot.to(torch.int64).expand(12, K, N)
+        buckets = tmap2(lambda d, src: d.scatter(-1, slot, src)[..., :nb],
+                        W.identity(F, (K, nb + 1), dev), prefix)
+        # S_{nb-1} .. S_1 (S_0 also holds bucket 0, which is left out)
+        suffix = prefix_scan(F, tmap(lambda a: a.flip(-1), buckets))
+        return tree_sum_last(F, tmap(lambda a: a[..., : nb - 1], suffix), nb - 1)
 
     def __call__(self, points_jac, bits):
         """points_jac: Jacobian leaves (12, N); bits: (n_bits, N, *B) ->

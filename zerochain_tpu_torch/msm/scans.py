@@ -36,9 +36,9 @@ def _ident_like(F, pts, width: int):
     return W.identity(F, (*lead, width), first_leaf(pts).device)
 
 
-def _shift_in_identity(F, pts):
+def _shift_in_identity(F, pts, ident_like=_ident_like):
     """(..., n) -> (..., n): identity at 0, pts[..., :-1] after it."""
-    ident = _ident_like(F, pts, 1)
+    ident = ident_like(F, pts, 1)
     return tmap2(lambda i, x: torch.cat([i, x[..., :-1]], dim=-1), ident, pts)
 
 
@@ -58,10 +58,12 @@ def hs_prefix_scan(F, pts, add=W.add):
     return pts
 
 
-def lf_scan(F, pts, add=W.add):
+def lf_scan(F, pts, add=W.add, ident_like=_ident_like):
     """Inclusive prefix scan, Ladner-Fischer (width a power of two):
     pairwise sums, a scan of them, an odd-position fix-up; about 2n adds at
-    2 log2(n) depth.  Widths up to LF_MIN go to hs_prefix_scan."""
+    2 log2(n) depth.  Widths up to LF_MIN go to hs_prefix_scan.  ``add``
+    need only be associative: its left operand is always the earlier part
+    of the row; ``ident_like(F, pts, width)`` gives its identity."""
     n = first_leaf(pts).shape[-1]
     if n == 1:
         return pts
@@ -71,12 +73,12 @@ def lf_scan(F, pts, add=W.add):
         raise ValueError(f"lf_scan needs a power-of-two width, got {n}")
     even = tmap(lambda x: x[..., 0::2], pts)
     odd = tmap(lambda x: x[..., 1::2], pts)
-    r = lf_scan(F, add(F, even, odd), add)
-    y_even = add(F, _shift_in_identity(F, r), even)
+    r = lf_scan(F, add(F, even, odd), add, ident_like)
+    y_even = add(F, _shift_in_identity(F, r, ident_like), even)
     return tmap2(interleave_last, y_even, r)
 
 
-def prefix_scan(F, pts, add=W.add):
+def prefix_scan(F, pts, add=W.add, ident_like=_ident_like):
     """Inclusive prefix scan along the last axis.  The JAX package picks
     Ladner-Fischer where its fused TPU kernels run the adds and
     Hillis-Steele elsewhere (to keep XLA graphs small); here no graph is
@@ -85,7 +87,29 @@ def prefix_scan(F, pts, add=W.add):
     n = first_leaf(pts).shape[-1]
     if n & (n - 1):
         return hs_prefix_scan(F, pts, add)
-    return lf_scan(F, pts, add)
+    return lf_scan(F, pts, add, ident_like)
+
+
+def segmented_prefix_scan(F, pts, starts, add=W.add):
+    """Inclusive prefix sums along the last axis that restart wherever
+    ``starts`` (bool, the points' batch shape) is set: ``prefix_scan`` over
+    (point, flag) pairs with the segmented operator of the JAX ``Msm``'s
+    'assoc' mode, (p, f) . (q, g) = (g ? q : p + q, f | g), whose identity
+    is (the identity point, unset).  The flag rides as a fourth leaf of
+    shape (1, *batch)."""
+    def seg_add(F, left, right):
+        merged = add(F, left[:3], right[:3])
+        pt = W.select(F, right[3][0] != 0, right[:3], merged)
+        return (*pt, left[3] | right[3])
+
+    def seg_ident(F, pairs, width):
+        flag = pairs[3]
+        unset = torch.zeros((1, *flag.shape[1:-1], width), dtype=flag.dtype,
+                            device=flag.device)
+        return (*_ident_like(F, pairs[:3], width), unset)
+
+    flags = starts.unsqueeze(0).to(torch.int32)
+    return prefix_scan(F, (*pts, flags), seg_add, seg_ident)[:3]
 
 
 def exclusive_scan_last(F, pts, add=W.add):

@@ -1,3 +1,3 @@
 """Radix-2 NTT over Fr."""
 
-from .ntt import NttPlan, plan_for  # noqa: F401
+from .ntt import NttPlan, plan_for, quotient  # noqa: F401

@@ -106,6 +106,16 @@ class NttPlan:
         return L.mont_mul(FR, evals, self._bcast(self.zinv, evals))
 
 
+def quotient(plan, a_ev, b_ev, c_ev):
+    """Padded constraint evaluations (8, *batch, d) -> the Groth16
+    quotient's coefficients h = (A * B - C) / Z: intt -> coset_ntt ->
+    pointwise -> divide by Z on the coset -> icoset_ntt, through ``plan``
+    (an ``NttPlan`` or a ``dist.DistNtt``: both have these transforms)."""
+    a_c, b_c, c_c = (plan.coset_ntt(plan.intt(e)) for e in (a_ev, b_ev, c_ev))
+    q = L.sub(FR, L.mont_mul(FR, a_c, b_c), c_c)
+    return plan.icoset_ntt(plan.divide_by_z_on_coset(q))
+
+
 _PLANS: dict = {}
 
 

@@ -65,7 +65,7 @@ class TorchBackend:
         """Quotient polynomial coefficients (d - 1 ints) by the device NTT
         plan: intt -> coset_ntt -> a*b - c -> divide by Z -> icoset_ntt."""
         from ..groth16 import domain as dom
-        from ..ntt import plan_for
+        from ..ntt import plan_for, quotient
 
         m = cs.num_constraints
         d = dom.domain_size(m)
@@ -75,10 +75,5 @@ class TorchBackend:
             evals = [cs.eval_lc(c[which]) for c in cs.constraints]
             return FR.array(evals + [0] * (d - m), self.device, mont=True)
 
-        a_c = plan.coset_ntt(plan.intt(vals(0)))
-        b_c = plan.coset_ntt(plan.intt(vals(1)))
-        c_c = plan.coset_ntt(plan.intt(vals(2)))
-        q = L.sub(FR, L.mont_mul(FR, a_c, b_c), c_c)
-        q = plan.divide_by_z_on_coset(q)
-        h = plan.icoset_ntt(q)
+        h = quotient(plan, vals(0), vals(1), vals(2))
         return FR.to_ints(h[:, : d - 1], mont=True)

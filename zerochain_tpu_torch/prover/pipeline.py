@@ -9,7 +9,9 @@ msm/pippenger.py (bucket sums of the sorted digits, then a bucket fold);
 (msm/suffix.py).  All three give the
 same proofs.  Everything stays on the device; the only host transfer is one
 batch of normalized proof points.  Mirrors bellman's create_random_proof pipeline
-(SURVEY.md §3.2).
+(SURVEY.md §3.2).  ``ZEROCHAIN_DIST=1`` spreads the quotient's transforms and
+every MSM chunk's points over the ranks of a torch.distributed process group
+(dist/), each rank proving the same batch on its own device.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from ..models.confidential import ConfidentialTransfer
 from ..models.mini import MiniCommit
 from ..msm import pippenger as pip
 from ..msm import suffix as smsm
-from ..ntt import plan_for
+from ..ntt import plan_for, quotient
 from ..r1cs.system import ConstraintSystem
 from ..utils.profiling import StageRecorder, device_trace, trace_dir_from_env
 from . import witness as wit
@@ -58,7 +60,25 @@ class ConfidentialProver:
 
     ``msm_impl``: "suffix" (default) or "hs", None reads
     ``ZEROCHAIN_MSM_IMPL``; ``msm_tail``: the suffix MSMs' tail, "totals" or
-    "split", None reads ``ZEROCHAIN_MSM_TOTALS`` (see ``SuffixMsm``)."""
+    "split", None reads ``ZEROCHAIN_MSM_TOTALS`` (see ``SuffixMsm``).  As in
+    the JAX package, ``ZEROCHAIN_MSM_SUFFIX_C`` sets the suffix MSMs' window
+    width (default 8), ``ZEROCHAIN_MSM_SCAN_G1`` / ``_G2`` the bucket MSMs'
+    scan mode ("hs" or "assoc"; unset: ``ZEROCHAIN_MSM_SCAN``), and
+    ``ZEROCHAIN_MSM_CHUNK_G2`` caps the chunk that B1 and B2 share (default
+    16,384; ``ZEROCHAIN_MSM_CHUNK`` caps every chunk).
+
+    ``ZEROCHAIN_DIST=1``: the prover runs on the default torch.distributed
+    process group, every rank calling ``prove`` on the same batch with the
+    whole CRS on its own device (``device`` picks it: ``None`` is the
+    current CUDA device).  Each MSM chunk's points are split over the ranks
+    (``dist.sharded_suffix``, on the hs path ``dist.sharded_msm``) and the
+    quotient runs as four-step transforms (``dist.DistNtt.quotient``)
+    where d >= 2 n^2 for n ranks; every rank gets the same proofs.  It
+    engages at any world size, where the JAX package needs more than one
+    device: the card's machine has one H100, and a world of one runs the
+    path there.  Without an initialised process group it raises: it never
+    proves on one device instead.  Each chunk must divide by the world
+    size."""
 
     CIRCUIT = ConfidentialTransfer
 
@@ -97,6 +117,11 @@ class ConfidentialProver:
         self.plan = plan_for(self.d, dev)
         self.sync_stages = False  # True: synchronize at the end of each stage
         self.last_timings: dict = {}
+        self.dist = bool(int(os.environ.get("ZEROCHAIN_DIST", "0")))
+        if self.dist:
+            from ..dist import comm
+
+            _, self.world_size = comm.world()  # raises without a group
 
         if _device_queries is not None:
             self.params = None
@@ -133,22 +158,29 @@ class ConfidentialProver:
         # MSM chunk sizes: capped by the domain size so tiny fixture
         # circuits (MiniProver) don't pad their MSMs out to 16k points.
         req_chunk = int(os.environ.get("ZEROCHAIN_MSM_CHUNK", "16384"))
+        g2_cap = int(os.environ.get("ZEROCHAIN_MSM_CHUNK_G2", "16384"))
         d_pow2 = 1 << max(0, (self.d - 1).bit_length())
         self.msm_chunk_g1 = min(req_chunk, max(1024, d_pow2))
 
         # Per-MSM chunks: padding a query out to a bigger chunk than its
         # pow2-ceil size makes the scan run DEAD points, so each query gets
-        # min(req, pow2ceil(n)).  B1 (G1) and B2 (G2) must MATCH to share
-        # their digit sort.
-        def chunk_for(n_pts):
+        # min(cap, req, pow2ceil(n)).  B1 (G1) and B2 (G2) must MATCH to
+        # share their digit sort, so both take the G2 cap.
+        def chunk_for(n_pts, cap):
             p = 1 << max(0, (max(1, n_pts) - 1).bit_length())
             return max(min(1024, self.msm_chunk_g1),
-                       min(self.msm_chunk_g1, p))
+                       min(cap, self.msm_chunk_g1, p))
 
-        self.msm_chunk_b = chunk_for(len(self.b_cols))
-        self.msm_chunk_a = chunk_for(len(self.a_cols))
-        self.msm_chunk_l = chunk_for(self.num_aux)
-        self.msm_chunk_h = chunk_for(self.d)
+        self.msm_chunk_b = chunk_for(len(self.b_cols), g2_cap)
+        self.msm_chunk_a = chunk_for(len(self.a_cols), req_chunk)
+        self.msm_chunk_l = chunk_for(self.num_aux, req_chunk)
+        self.msm_chunk_h = chunk_for(self.d, req_chunk)
+        if self.dist:
+            for chunk in (self.msm_chunk_a, self.msm_chunk_b,
+                          self.msm_chunk_l, self.msm_chunk_h):
+                if chunk % self.world_size:
+                    raise ValueError(f"MSM chunk {chunk} does not divide over "
+                                     f"{self.world_size} ranks")
 
         def chunked(pts, cols, n, chunk):
             """-> (the query's points as contiguous chunks, padded size)."""
@@ -171,15 +203,19 @@ class ConfidentialProver:
                                     self.msm_chunk_b)
 
         if self.msm_impl == "suffix":
-            # signed c = 8 digits: 32 windows, |digit| <= 128
-            self.msm_g1 = smsm.SuffixMsm(FqOps, c=8, signed=True,
+            # signed digits; at c = 8: 32 windows, |digit| <= 128
+            suffix_c = int(os.environ.get("ZEROCHAIN_MSM_SUFFIX_C", "8"))
+            self.msm_g1 = smsm.SuffixMsm(FqOps, c=suffix_c, signed=True,
                                          tail=msm_tail)
-            self.msm_g2 = smsm.SuffixMsm(Fq2Ops, c=8, signed=True,
+            self.msm_g2 = smsm.SuffixMsm(Fq2Ops, c=suffix_c, signed=True,
                                          tail=msm_tail)
         else:
-            # unsigned c = 8 digits: 32 windows, 256 buckets
-            self.msm_g1 = pip.Msm(FqOps)
-            self.msm_g2 = pip.Msm(Fq2Ops)
+            # unsigned digits of pippenger.WINDOW_C bits (c = 8: 32 windows,
+            # 256 buckets)
+            self.msm_g1 = pip.Msm(
+                FqOps, mode=os.environ.get("ZEROCHAIN_MSM_SCAN_G1") or None)
+            self.msm_g2 = pip.Msm(
+                Fq2Ops, mode=os.environ.get("ZEROCHAIN_MSM_SCAN_G2") or None)
 
     def _prep(self, pts, cols, n, chunk):
         """Gather dense columns, pad to a chunk multiple, and NORMALIZE
@@ -226,12 +262,20 @@ class ConfidentialProver:
     def _msm_chunked(self, field, pts_chunks, bits):
         """Bucket-MSM chunk loop: each chunk is a whole MSM over its slice
         of the bits (n_bits, size, B), window combine included, and the
-        per-proof partial points (leaf batch (B,)) are added."""
+        per-proof partial points (leaf batch (B,)) are added.  In dist mode
+        each chunk's points are split over the ranks (``sharded_msm``,
+        always the bucket MSM: the naive form takes no proof-batch axis)."""
         msm = self.msm_g1 if field is FqOps else self.msm_g2
         acc, off = None, 0
         for cpts in pts_chunks:
             n = pip.first_leaf(cpts).shape[-1]
-            part = msm(cpts, bits[:, off: off + n])
+            if self.dist:
+                from ..dist.msm import sharded_msm
+
+                part = sharded_msm(field, cpts, bits[:, off: off + n],
+                                   use_pippenger=True, msm=msm)
+            else:
+                part = msm(cpts, bits[:, off: off + n])
             acc = part if acc is None else W.add(field, acc, part)
             off += n
         return acc
@@ -240,11 +284,19 @@ class ConfidentialProver:
         """Suffix-MSM chunk loop over pre-sliced point chunks and digit
         preps: per chunk one window_totals (or, on the split tail, one
         split_tail) launch + one accumulate, and the Horner window combine
-        runs ONCE per MSM."""
+        runs ONCE per MSM.  In dist mode prep_chunks are the raw digit
+        chunks and each chunk's points are split over the ranks
+        (``sharded_suffix``: a local sort and scan, one all-gather of the
+        (nw, B) partial points a chunk)."""
         msm = self.msm_g1 if field is FqOps else self.msm_g2
         acc = None
         for cpts, cprep in zip(pts_chunks, prep_chunks):
-            part = msm.window_partials(cpts, prep=cprep)
+            if self.dist:
+                from ..dist.msm import sharded_suffix
+
+                part = sharded_suffix(msm, cpts, cprep)
+            else:
+                part = msm.window_partials(cpts, prep=cprep)
             acc = part if acc is None else W.add(field, acc, part)
         return msm.combine(acc)
 
@@ -326,12 +378,19 @@ class ConfidentialProver:
         Returns per-MSM lists of (sorted_digits, order) ready for
         window_partials(prep=...).  The B1 (G1) and B2 (G2) MSMs run over
         IDENTICAL scalars with the same chunk size, so they share the same
-        preps: one digit sort instead of two."""
+        preps: one digit sort instead of two.
+
+        In dist mode the raw digit chunks (nw, chunk, B) are returned
+        instead: each rank must sort only its LOCAL point slice (a global
+        order would make every rank gather points from the others), so B1
+        and B2 share their digits and sort them separately."""
         wit_canon = L.from_mont(FR, witness_mont)
         h_canon = L.from_mont(FR, h_scalars)
 
         def preps(words, msm, size, chunk):
             d = self._pad_points_axis(msm.digits(words), size)
+            if self.dist:
+                return [d[:, off: off + chunk] for off in range(0, size, chunk)]
             return [msm.prep(d[:, off: off + chunk])
                     for off in range(0, size, chunk)]
 
@@ -360,7 +419,10 @@ class ConfidentialProver:
                 pad(h_bits, self.size_h))
 
     def _h_scalars(self, witness_mont):
-        """witness (8, n_vars, B) -> quotient coeffs (8, d-1, B) mont."""
+        """witness (8, n_vars, B) -> quotient coeffs (8, d-1, B) mont.  In
+        dist mode, where d >= 2 n^2 for n ranks, the intt -> coset_ntt ->
+        pointwise -> divide-by-z -> icoset_ntt chain runs as four-step
+        distributed transforms (``dist.DistNtt.quotient``)."""
         a_v, b_v, c_v = self.matrices.eval(witness_mont)
         B = witness_mont.shape[-1]
         pad = self.d - self.m
@@ -370,12 +432,13 @@ class ConfidentialProver:
                             device=x.device)
             return torch.cat([x, z], dim=1).movedim(1, -1)  # (8, B, d)
 
-        a_c = self.plan.coset_ntt(self.plan.intt(pad_to_d(a_v)))
-        b_c = self.plan.coset_ntt(self.plan.intt(pad_to_d(b_v)))
-        c_c = self.plan.coset_ntt(self.plan.intt(pad_to_d(c_v)))
-        q = L.sub(FR, L.mont_mul(FR, a_c, b_c), c_c)
-        q = self.plan.divide_by_z_on_coset(q)
-        h = self.plan.icoset_ntt(q)  # (8, B, d)
+        plan = self.plan
+        if self.dist and self.d >= 2 * self.world_size ** 2:
+            from ..dist.ntt import dist_plan_for
+
+            plan = dist_plan_for(self.d, device=self.device)
+        h = quotient(plan, pad_to_d(a_v), pad_to_d(b_v),
+                     pad_to_d(c_v))  # (8, B, d)
         return h.movedim(-1, 1)[:, : self.d - 1]  # (8, d-1, B)
 
     # ------------------------------------------------------------------
