@@ -16,7 +16,9 @@ Phases, each printing one JSON line when it ends; any failure raises and the
 run exits non-zero (there is no CPU fallback):
 
   device   the card, its power limit, the torch/CUDA versions
-  build    compiles csrc/*.cu with nvcc (all sources in parallel) and loads them
+  build    compiles csrc/*.cu with nvcc (all sources in parallel) and loads them;
+           ptxas's registers, stack frame and spill bytes of every function
+           (kernel entries and device functions) and each library's SASS size
   crs      ConfidentialProver.from_toxic_waste on the card
   witness  the batch's witness (confidential_witness) on the card, with its
            kernel launches counted, equal word for word to the CPU plain
@@ -90,9 +92,12 @@ values and bench_assignments(32):
   anon_prove, anon_prove_hs, anon_prove_split
                 as prove, prove_hs, prove_split, with the same checks; the
                 three give the same proofs
+  anon_backend  groth16.core.generate_parameters on the AnonymousTransfer
+                circuit through TorchBackend: the prover's verifying key, and
+                create_proof on assignment 0 equal to anon_prove's proof 0
   anon_verify   the host verifier accepts proofs 0 and 31 of anon_prove and
-                one of each other path, with 104 public inputs, and rejects
-                a tampered input
+                one of each other path and of anon_backend, with 104 public
+                inputs, and rejects a tampered input
 
 Then, after the anonymous phases and also under --mini, the verifier's side:
 
@@ -154,6 +159,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import pathlib
 import re
 import shutil
 import subprocess
@@ -200,30 +206,68 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _demangle(names) -> dict:
+    """{mangled: short name}: demangled by c++filt, without namespaces,
+    "void " and parameters (the mangled name where c++filt is missing)."""
+    names = list(names)
+    if not names or not shutil.which("c++filt"):
+        return {n: n for n in names}
+    plain = subprocess.run(["c++filt"], input="\n".join(names), text=True,
+                           capture_output=True, timeout=60).stdout.splitlines()
+    if len(plain) != len(names):
+        return {n: n for n in names}
+    return {n: re.sub(r"^void ", "", p.replace("(anonymous namespace)::", ""))
+            .split("(")[0] for n, p in zip(names, plain)}
+
+
 def ptxas_entries(log: str) -> dict:
-    """Registers, spill-store and stack-frame bytes of each kernel entry in
-    an nvcc -Xptxas -v log, by the entry's demangled name without its
-    namespace and parameters (the mangled name where c++filt is missing)."""
-    out, cur = {}, None
+    """Each function of an nvcc -Xptxas -v log, kernel entries and device
+    functions alike, by its short name (_demangle): its stack frame, spill
+    store and spill load bytes, and for an entry its registers
+    ("kind": "entry" or "function")."""
+    out, cur, entry = {}, None, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            cur = out.setdefault(m.group(1), {})
+            entry = m.group(1)
+            out.setdefault(entry, {})["kind"] = "entry"
             continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            cur.setdefault("kind", "function")
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and cur is not None:
-            cur["stack"], cur["spill"] = int(m.group(1)), int(m.group(2))
+            cur["stack"], cur["spill"], cur["spill_loads"] = map(int, m.groups())
+            cur = None
         m = re.search(r"Used (\d+) registers", line)
-        if m and cur is not None:
-            cur["registers"] = int(m.group(1))
-    names = list(out)
-    if names and shutil.which("c++filt"):
-        plain = subprocess.run(["c++filt"], input="\n".join(names), text=True,
-                               capture_output=True, timeout=60).stdout.splitlines()
-        if len(plain) == len(names):
-            short = [re.sub(r"^void ", "", p.replace("(anonymous namespace)::", ""))
-                     .split("(")[0] for p in plain]
-            out = {k: out[n] for k, n in zip(short, names)}
+        if m and entry is not None:
+            out[entry]["registers"] = int(m.group(1))
+            entry = None
+    short = _demangle(out)
+    return {short[k]: v for k, v in out.items()}
+
+
+def sass_size(path) -> dict:
+    """{function: SASS instructions} of a built library, by cuobjdump, and
+    "total"; None where the toolkit has no cuobjdump."""
+    from zerochain_tpu_torch import _build
+
+    exe = shutil.which("cuobjdump") or str(
+        pathlib.Path(_build.nvcc_path()).parent / "cuobjdump")
+    if not pathlib.Path(exe).exists():
+        return None
+    sass = subprocess.run([exe, "-sass", str(path)], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        counts[name] = len(re.findall(r"^\s+/\*[0-9a-f]{4,}\*/", part, re.M))
+    short = _demangle(counts)
+    out = {short[k]: v for k, v in counts.items()}
+    out["total"] = sum(counts.values())
     return out
 
 
@@ -1939,11 +1983,48 @@ def anonymous_phases(profile, gen, counters, path_counts):
     rs = [(3 + i, 5 + i) for i in range(B)]
     proofs, path_proofs = prove_paths(prover, AnonymousProver, assignments, rs,
                                       B, "anon_", profile, counters, path_counts)
+    backend_proof = anon_backend(prover, assignments, rs, proofs, counters)
     phase_verify(prover, assignments, proofs,
                  {"prove_hs": (path_proofs["prove_hs"][1], 1),
-                  "prove_split": (path_proofs["prove_split"][B - 2], B - 2)},
+                  "prove_split": (path_proofs["prove_split"][B - 2], B - 2),
+                  "backend": (backend_proof, 0)},
                  B, prover.num_inputs - 1, "anon_verify")
     return entries
+
+
+def anon_backend(prover, assignments, rs, proofs, counters):
+    """Phase anon_backend: groth16.core.generate_parameters on the
+    AnonymousTransfer circuit and ANON_TOXIC through TorchBackend must give
+    the prover's verifying key, and create_proof on assignment 0 must give
+    anon_prove's proof 0 (the reference's host prover over the card's
+    backend, against the batched pipeline); -> that proof."""
+    from zerochain_tpu_torch.groth16.core import create_proof, generate_parameters
+    from zerochain_tpu_torch.prover import TorchBackend
+
+    t_phase = time.time()
+    backend = TorchBackend()
+    params = generate_parameters(prover.CIRCUIT(), **ANON_TOXIC, backend=backend)
+    gen_s = time.time() - t_phase
+    if params.vk != prover.vk:
+        raise SystemExit("anon_backend: generate_parameters gave another verifying key")
+    reset_counters()
+    in_backend = timed_backend(backend)
+    t0 = time.time()
+    proof = create_proof(prover.circuit_for(assignments[0]), params, *rs[0],
+                         backend=backend)
+    torch.cuda.synchronize()
+    proof_s = time.time() - t0
+    counts = {k: dict(v) for k, v in counters.items()}
+    if ints_of([proof]) != ints_of(proofs[:1]):
+        raise SystemExit("anon_backend: create_proof differs from anon_prove's proof 0")
+    del params
+    emit("anon_backend", seconds=time.time() - t_phase,
+         generate_parameters_seconds=gen_s, create_proof_seconds=proof_s,
+         vk_equal=True, proof_equal=True,
+         create_proof_backend_seconds=in_backend,
+         create_proof_host_seconds=proof_s - sum(in_backend.values()),
+         launches=counts)
+    return proof
 
 
 REDDSA_BLOCK = 4096      # signatures: 3 x 4,096 = 12,288 chains
@@ -2443,7 +2524,8 @@ def main() -> int:
         ptxas[name] = dict(max_registers=max(regs, default=None),
                            max_spill_store_bytes=max(spills, default=None),
                            max_stack_frame_bytes=max(stack, default=None),
-                           entries=ptxas_entries(log))
+                           functions=ptxas_entries(log),
+                           sass=sass_size(_build.lib_path(name)))
     emit("build", seconds=time.time() - t0, ptxas=ptxas)
 
     gen = torch.Generator(device="cuda")

@@ -3,9 +3,12 @@ plain PyTorch versions.
 
 ``zerochain_tpu_torch/csrc/*.cuh`` and the per-thread steps of
 ``totals_kernel.cu`` and ``column_scan_kernel.cu`` are written so that they
-also build with a host compiler.  This file builds ``tests/torch_csrc_host_check.cpp`` with ``g++``
+also build with a host compiler (the carry-chain instructions of the field
+multiply emulated on a carry flag in a variable: the same instruction
+sequence).  This file builds ``tests/torch_csrc_host_check.cpp`` with ``g++``
 and feeds it the same inputs as the plain versions: field ops and point
-add/double/mixed-add word for word, ``window_totals`` (each row's threads
+add/double/mixed-add word for word, the lazy Fq values of the curve
+formulas (operands in [0, 2p)) and the point ops on such operands, ``window_totals`` (each row's threads
 stepped through in order and summed as the kernel sums them) after
 ``normalize``, ``column_scan`` (every lane stepped through) word for word,
 the two kernels of ``split_tail_kernel.cu`` (the lane pass lane by lane,
@@ -129,6 +132,80 @@ def test_point_ops(host_bin, name):
     assert got == want
 
 
+def _fq_words(v):
+    return " ".join("%08x" % ((v >> (32 * i)) & 0xFFFFFFFF) for i in range(12))
+
+
+def _fq_int(words):
+    return sum(int(w, 16) << (32 * i) for i, w in enumerate(words))
+
+
+@pytest.mark.parametrize("case", ["edges", "random", "difference_p"])
+def test_field_lazy(host_bin, case):
+    """The lazy Fq values of the curve formulas (field.cuh): operands
+    anywhere in [0, 2p); a * b, a + b, a - b and -a must lie in [0, 2p) and
+    be congruent to the mirror's result, canonicalise to it word for word,
+    and the zero test must see 0 and p alike."""
+    p = TL.FQ.p
+    r_inv = pow(1 << 384, -1, p)
+    rng = np.random.RandomState(61)
+    if case == "edges":
+        edge = [0, 1, p - 1, p, p + 1, 2 * p - 1, p - 2, 2 * p - 2]
+        pairs = [(a, b) for a in edge for b in edge]
+    elif case == "random":
+        pairs = [(int.from_bytes(rng.bytes(48), "little") % (2 * p),
+                  int.from_bytes(rng.bytes(48), "little") % (2 * p)) for _ in range(64)]
+    else:  # a - b = p before canonicalisation, and a = b in other words
+        bs = [0, 1, 5, p - 1] + [int.from_bytes(rng.bytes(48), "little") % p
+                                 for _ in range(12)]
+        pairs = [(b + p, b) for b in bs] + [(b, b + p) for b in bs]
+    got = _run(host_bin, "\n".join(f"fql {_fq_words(a)} {_fq_words(b)}"
+                                    for a, b in pairs))
+    assert len(got) == 9 * len(pairs)
+    for i, (a, b) in enumerate(pairs):
+        lines = got[9 * i:9 * i + 9]
+        want = [a * b * r_inv % p, (a + b) % p, (a - b) % p, -a % p]
+        for k in range(4):
+            raw, canon = _fq_int(lines[k]), _fq_int(lines[4 + k])
+            assert raw < 2 * p and raw % p == want[k], (case, i, k)
+            assert canon == want[k], (case, i, k)
+        assert lines[8] == [str(int(a % p == 0)), str(int((a - b) % p == 0))]
+
+
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_point_ops_lazy(host_bin, name):
+    """add, double and madd on points whose every coordinate component
+    arrives as its value plus p (in [p, 2p), the zeros as p): a generic
+    pair, P = Q and P = -Q, and the identity on either side, must give the
+    plain versions' canonical words on the canonical inputs."""
+    tg, neg, pts = _points(name, np.random.RandomState(67), 6)
+    F = tg.F
+    fp = TL.FQ.p
+    ps = [pts[0], pts[1], pts[2], None, pts[3]]
+    qs = [pts[4], None, None, pts[5], None]
+    p = tg.double(tg.from_affine_host(ps, device="cpu"))
+    two = tg.to_affine_host(p)
+    qs[1], qs[2] = two[1], neg(two[2])
+    q = tg.from_affine_host(qs, device="cpu")
+
+    def col(pt, i):
+        return " ".join(_hex(pl[:, i]) for pl in cuda_ec._planes(F, pt))
+
+    def lifted(pt, i):
+        return " ".join(_fq_words(_fq_int(_hex(pl[:, i]).split()) + fp)
+                        for pl in cuda_ec._planes(F, pt))
+
+    got = _run(host_bin, "\n".join(
+        f"{name} {lifted(p, i)} {lifted(q, i)}" for i in range(5)))
+    add = cuda_ec.add_plain(F, p, q)
+    dbl = cuda_ec.double_plain(F, p)
+    want = []
+    for i in range(5):
+        want += [col(add, i).split(), col(dbl, i).split(),
+                 col(add, i).split(), col(add, i).split()]
+    assert got == want
+
+
 def _outs(name, lines, lead):
     outs = []
     for line in lines:
@@ -144,7 +221,8 @@ def _k3(host_bin, name, P, sd, od, T, min_run):
     plan), min_run non-zero digits a thread before a row takes more warps."""
     N = od.shape[-1]
     M = sd.numel() // N
-    text = f"k3 {int(name == 'g2')} {N} {M} {T} {min_run}\n"
+    nb = int(sd.abs().max()) + 1 if sd.numel() else 2
+    text = f"k3 {int(name == 'g2')} {N} {M} {max(nb, 2)} {T} {min_run}\n"
     text += "\n".join(_hex(pl) for pl in cuda_ec._planes(GROUPS[name][0].F, P)) + "\n"
     text += " ".join(map(str, sd.reshape(-1).tolist())) + "\n"
     text += " ".join(map(str, od.reshape(-1).tolist())) + "\n"

@@ -8,8 +8,10 @@
 //
 // stdin, one record after the other:
 //   fq|fr|fs  a b            -> mont_mul, add, sub                 (hex words)
+//   fql       a b            -> the lazy Fq values of a * b, a + b, a - b, -a (raw),
+//                               then canonical, then is_zero(a), is_zero(a - b)
 //   g1|g2     p q            -> add, double(p), madd, add in place (hex words)
-//   k3 g2 N M T R  planes digits order -> the window totals, one line a plane
+//   k3 g2 N M nb T R  planes digits order -> the window totals, one line a plane
 //   cs g2 M T  planes               -> the column scan in place, one line a plane
 //   lad g2 n_bits count  planes bits -> the ladder, one line a plane
 //   hor g2 nw c count  planes        -> the Horner combine, one line a plane
@@ -47,9 +49,19 @@ template <int N> static void pr(const uint32_t* a) { for (int i = 0; i < N; i++)
 template <class F> static void field_ops() {
   uint32_t a[F::N], b[F::N], r[F::N];
   rd<F::N>(a); rd<F::N>(b);
-  fp_mont_mul<F>(r, a, b); pr<F::N>(r);
+  fp_mont_mul_inl<F>(r, a, b); pr<F::N>(r);
   fp_add<F>(r, a, b); pr<F::N>(r);
   fp_sub<F>(r, a, b); pr<F::N>(r);
+}
+
+// The lazy Fq values: inputs anywhere in [0, 2p).
+static void field_lazy() {
+  Fq a, b;
+  rd<12>(a.w); rd<12>(b.w);
+  const Fq v[4] = {fq_mul(a, b), fq_add(a, b), fq_sub(a, b), fq_neg(a)};
+  for (const Fq& x : v) pr<12>(x.w);
+  for (const Fq& x : v) pr<12>(fq_canon(x).w);
+  printf("%d %d\n", (int)fq_is_zero(a), (int)fq_is_zero(fq_sub(a, b)));
 }
 
 template <class F> static void field_inv() {
@@ -96,34 +108,49 @@ static void jj_fixed(int n_win, long long lanes) {
   print_words(out);
 }
 
+// A point's 3 * E::W words (plane by plane) <-> its value; stored canonical.
+template <class E> static Jac<E> jload(const uint32_t* w) {
+  return jac_gather<E>([&](int k, int i) { return w[k * 12 + i]; });
+}
+template <class E> static void jstore(uint32_t* w, const Jac<E>& p) {
+  jac_scatter(p, [&](int k, int i, uint32_t x) { w[k * 12 + i] = x; });
+}
+
+// p and q may arrive with coordinates in [p, 2p) (the lazy values the
+// kernels carry between operations); every result is stored canonical.
 template <class E> static void point_ops() {
   constexpr int PW = 3 * E::W;
   uint32_t p[PW], q[PW], r[PW];
   rd<PW>(p); rd<PW>(q);
-  jac_add<E>(r, p, q); pr<PW>(r);
-  jac_double<E>(r, p); pr<PW>(r);
-  jac_madd<E>(r, p, q); pr<PW>(r);
-  jac_add<E>(p, p, q); pr<PW>(p);
+  const Jac<E> P = jload<E>(p), Q = jload<E>(q);
+  jstore<E>(r, jac_add(P, Q)); pr<PW>(r);
+  jstore<E>(r, jac_double(P)); pr<PW>(r);
+  jstore<E>(r, jac_madd(P, Q)); pr<PW>(r);
+  Jac<E> A = P;
+  A = jac_add(A, Q);
+  jstore<E>(p, A); pr<PW>(p);
 }
 
 // The sum of T threads' locals in the kernel's order: per warp of (at most)
-// 32 lanes a butterfly of xor shuffles, then the warps' lane 0 in order.
-template <class E> static void reduce_threads(std::vector<uint32_t>& loc, int T, uint32_t* res) {
-  constexpr int PW = 3 * E::W;
+// 32 lanes a butterfly of xor shuffles on canonical words, then the warps'
+// lane 0 in order.
+template <class E> static Jac<E> reduce_threads(std::vector<Jac<E>>& loc, int T) {
   const int lanes = T < 32 ? T : 32;
-  std::vector<uint32_t> nxt(loc.size());
+  std::vector<Jac<E>> nxt(loc.size());
+  for (auto& x : loc) x = jac_canon(x);
   for (int s = 1; s < lanes; s <<= 1) {
     for (int t = 0; t < T; t++) {
       const int u = (t & ~31) | ((t & 31) ^ s);
-      jac_add<E>(&nxt[t * PW], &loc[t * PW], &loc[u * PW]);
+      nxt[t] = jac_canon(jac_add(loc[t], loc[u]));
     }
     loc.swap(nxt);
   }
-  jac_copy<E>(res, &loc[0]);
-  for (int w = 1; w * 32 < T; w++) jac_add<E>(res, res, &loc[w * 32 * PW]);
+  Jac<E> res = loc[0];
+  for (int w = 1; w * 32 < T; w++) res = jac_add(res, loc[w * 32]);
+  return res;
 }
 
-template <class E> static void totals(int N, long long M, int T, int min_run) {
+template <class E> static void totals(int N, long long M, int nb, int T, int min_run) {
   constexpr int NP = 3 * E::W / 12, PW = 3 * E::W;
   std::vector<std::vector<uint32_t>> planes(NP, std::vector<uint32_t>(12 * N)),
       outs(NP, std::vector<uint32_t>(12 * M));
@@ -133,15 +160,17 @@ template <class E> static void totals(int N, long long M, int T, int min_run) {
   for (auto& x : od) if (scanf("%d", &x) != 1) x = 0;
   TotalsArgs a;
   for (int k = 0; k < NP; k++) { a.planes[k] = planes[k].data(); a.out[k] = outs[k].data(); }
-  a.digits = dg.data(); a.order = od.data(); a.N = N; a.M = M;
+  a.digits = dg.data(); a.order = od.data(); a.N = N; a.nb = nb; a.M = M;
   for (long long m = 0; m < M; m++) {
     const int nnz = totals_nnz(a, m);
     const int TT = T > 0 ? T : 32 * totals_row_warps(nnz, min_run);
-    std::vector<uint32_t> loc(TT * PW);
-    for (int t = 0; t < TT; t++) totals_slice<E>(a, m, nnz, t, TT, &loc[t * PW]);
-    uint32_t res[PW];
-    reduce_threads<E>(loc, TT, res);
-    totals_write<E>(a, m, res);
+    std::vector<Jac<E>> loc(TT);
+    std::vector<uint32_t> rows(totals_row_slots(nb) * PW, 0xdeadbeefu);
+    std::vector<int32_t> drops(totals_row_slots(nb), 0);
+    const TotalsSlots<E> sc{rows.data(), drops.data()};
+    for (int t = 0; t < TT; t++) totals_scan<E>(a, m, nnz, t, TT, sc);
+    for (int t = 0; t < TT; t++) loc[t] = totals_drops<E>(a, m, nnz, t, TT, sc);
+    totals_write<E>(a, m, reduce_threads<E>(loc, TT));
   }
   for (auto& o : outs) { for (auto x : o) printf("%08x ", x); printf("\n"); }
 }
@@ -286,6 +315,7 @@ int main() {
     if (!strcmp(op, "fq")) field_ops<FqP>();
     else if (!strcmp(op, "fr")) field_ops<FrP>();
     else if (!strcmp(op, "fs")) field_ops<FsP>();
+    else if (!strcmp(op, "fql")) field_lazy();
     else if (!strcmp(op, "fqi")) field_inv<FqP>();
     else if (!strcmp(op, "fri")) field_inv<FrP>();
     else if (!strcmp(op, "fsi")) field_inv<FsP>();
@@ -302,9 +332,9 @@ int main() {
     else if (!strcmp(op, "g1")) point_ops<FqE>();
     else if (!strcmp(op, "g2")) point_ops<Fq2E>();
     else if (!strcmp(op, "k3")) {
-      int g2, N, T, R; long long M;
-      if (scanf("%d %d %lld %d %d", &g2, &N, &M, &T, &R) != 5) return 2;
-      if (g2) totals<Fq2E>(N, M, T, R); else totals<FqE>(N, M, T, R);
+      int g2, N, nb, T, R; long long M;
+      if (scanf("%d %d %lld %d %d %d", &g2, &N, &M, &nb, &T, &R) != 6) return 2;
+      if (g2) totals<Fq2E>(N, M, nb, T, R); else totals<FqE>(N, M, nb, T, R);
     } else if (!strcmp(op, "lad")) {
       int g2, n_bits; long long count;
       if (scanf("%d %d %lld", &g2, &n_bits, &count) != 3) return 2;

@@ -93,6 +93,11 @@ def build_all() -> None:
             raise errors[0]
 
 
+def lib_path(name: str) -> pathlib.Path:
+    """Where the library of ``csrc/<name>.cu`` is (or will be) built."""
+    return _target(name)
+
+
 def lib(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (built on first use)."""
     got = _libs.get(name)

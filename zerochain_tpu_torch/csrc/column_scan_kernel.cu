@@ -12,7 +12,7 @@
 // written once.
 //
 // Design: one thread per (program, lane), T-1 sequential mixed adds with the
-// running sum kept in the thread.  The mixed add (jac_madd) is right because
+// running sum kept in the thread's registers.  The mixed add (jac_madd) is right because
 // every input point has Z in {0, one}: the prover normalises the CRS at init,
 // and a padding point (Z = 0) passes the running sum through.  Lanes are the
 // fastest axis, so a warp's loads and stores of one depth are coalesced.
@@ -34,33 +34,30 @@ struct ColumnScanArgs {
   long long M;
 };
 
-// The scan of lane vl of program m, in place.  Kept out of line on the card:
-// inlined into the kernel (nvcc 12.9, sm_90a), the G2 instance faults with an
-// illegal address whenever one lane of a warp takes the doubling branch of
-// jac_madd (P = Q) while the others take the general add, from 1 program x 2
-// depths on; warps whose lanes agree run right, and so does this out-of-line
-// form on every input.  The source indexes no array by data.  The inlined
-// G2 SASS addresses 552 local loads and stores through uniform registers
-// (shared by the warp) that jac_double also loads constants into; this form
-// has none in its G2 kernel.  chip_smoke.py plants such a lane in its check.
+// The scan of lane vl of program m, in place, with the running sum and the
+// loaded point as register values (jacobian.cuh).  Kept inline.  The form
+// before it (the lane on word arrays, the multiply and the adds out of line
+// on pointers, a 2,848-byte frame) faulted in its G2 instance when inlined
+// (nvcc 12.9, sm_90a) with an illegal address whenever one lane of a warp
+// took the doubling branch of jac_madd (P = Q) while the others took the
+// general add; that SASS addressed 552 local loads and stores through
+// uniform registers, and only the out-of-line form ran right.  This form
+// has no local memory to address; tools/column_scan_inline.py builds it
+// inline and out of line and runs both on such lanes, and chip_smoke.py
+// plants such a lane in its check.
 template <class E>
-ZC_NOINLINE void column_scan_lane(uint32_t* const* planes, long long plane,
-                                  int T, long long m, int vl) {
-  constexpr int NP = 3 * E::W / 12;
-  uint32_t run[3 * E::W], cur[3 * E::W], res[3 * E::W];
+ZC_HD void column_scan_lane(uint32_t* const* planes, long long plane,
+                            int T, long long m, int vl) {
   const long long row = m * T * ZC_CS_LANES + vl;
-  for (int k = 0; k < NP; ++k)
-    for (int w = 0; w < 12; ++w) run[k * 12 + w] = planes[k][w * plane + row];
+  auto at = [&](long long i) {
+    return jac_gather<E>([&](int k, int w) { return planes[k][w * plane + i]; });
+  };
+  Jac<E> run = at(row);
+#pragma unroll 1
   for (int t = 1; t < T; ++t) {
-    const long long at = row + (long long)t * ZC_CS_LANES;
-    for (int k = 0; k < NP; ++k)
-      for (int w = 0; w < 12; ++w) cur[k * 12 + w] = planes[k][w * plane + at];
-    jac_madd<E>(res, run, cur);
-    for (int k = 0; k < NP; ++k)
-      for (int w = 0; w < 12; ++w) {
-        run[k * 12 + w] = res[k * 12 + w];
-        planes[k][w * plane + at] = res[k * 12 + w];
-      }
+    const long long i = row + (long long)t * ZC_CS_LANES;
+    run = jac_madd(run, at(i));
+    jac_scatter(run, [&](int k, int w, uint32_t x) { planes[k][w * plane + i] = x; });
   }
 }
 

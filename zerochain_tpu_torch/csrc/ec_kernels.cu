@@ -17,11 +17,11 @@
 // that for twice the bytes.
 //
 // Design: each coordinate arrives as its own limb-major plane (word w of
-// point i at w*count + i), so loads and stores are coalesced; the whole
-// formula runs in the thread's registers and local memory.  The field
-// multiply is an out-of-line function (one instance per kernel image) to
-// keep code size and compile time down; a G2 point is 72 words, so two
-// operands and the temporaries spill to local memory, which is accepted.
+// point i at w*count + i), so loads and stores are coalesced; the formula
+// runs on register values (jacobian.cuh), with the field multiply out of
+// line and called on values, one instance per kernel image (the form on
+// pointers had 2,880-byte frames; G2's add, two 72-word points beside its
+// temporaries, still spills a little: ptxas, PERF.md).
 //
 // The chains run 255 (ladder), 31 x 9 (Horner) or 255 x 2 (fold) dependent
 // group operations on 32-1,024 points or rows: too few threads to fill the
@@ -46,11 +46,9 @@ struct Planes {
 };
 
 template <class E>
-__device__ void load_point(uint32_t* dst, const uint32_t* const* planes,
-                           long long count, long long i) {
-  constexpr int NP = 3 * E::W / 12;
-  for (int k = 0; k < NP; ++k)
-    for (int w = 0; w < 12; ++w) dst[k * 12 + w] = planes[k][w * count + i];
+__device__ __forceinline__ Jac<E> load_point(const uint32_t* const* planes,
+                                             long long count, long long i) {
+  return jac_gather<E>([&](int k, int w) { return planes[k][w * count + i]; });
 }
 
 template <class E, bool IS_ADD>
@@ -58,18 +56,9 @@ __global__ void __launch_bounds__(128)
 ec_kernel(Planes pl, long long count) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= count) return;
-  constexpr int NP = 3 * E::W / 12;
-  uint32_t P[3 * E::W], R[3 * E::W];
-  load_point<E>(P, pl.p, count, i);
-  if (IS_ADD) {
-    uint32_t Q[3 * E::W];
-    load_point<E>(Q, pl.q, count, i);
-    jac_add<E>(R, P, Q);
-  } else {
-    jac_double<E>(R, P);
-  }
-  for (int k = 0; k < NP; ++k)
-    for (int w = 0; w < 12; ++w) pl.out[k][w * count + i] = R[k * 12 + w];
+  const Jac<E> P = load_point<E>(pl.p, count, i);
+  const Jac<E> R = IS_ADD ? jac_add(P, load_point<E>(pl.q, count, i)) : jac_double(P);
+  jac_scatter(R, [&](int k, int w, uint32_t x) { pl.out[k][w * count + i] = x; });
 }
 
 }  // namespace

@@ -1,79 +1,52 @@
-// Coordinate fields of the two curve groups, behind one interface:
-// FqE (G1: one Fq element, 12 words) and Fq2E (G2: c0 + c1*u with u^2 = -1,
-// 24 words, c0 first).  Every function may be called with r aliasing an
-// input.  Fq2 multiplies by 3-multiply Karatsuba with full reductions, so
-// all results are canonical and independent of how they were computed.
+// Coordinate fields of the two curve groups, as values behind one interface:
+// FqE (G1: one Fq, 12 words) and Fq2E (G2: c0 + c1*u with u^2 = -1, 24
+// words, c0 first).  Values are lazy, in [0, 2p) a component (field.cuh);
+// canon makes them canonical and is_zero tests the class.  Fq2 multiplies by
+// 3-multiply Karatsuba and squares with 2 multiplies, each an out-of-line
+// fq_mul on values.  word(v, c, w) is word w of component c, for the loads
+// and stores of jacobian.cuh (compile-time c and w keep v in registers).
 #pragma once
 #include "field.cuh"
 
+struct Fq2 {
+  Fq c0, c1;
+};
+
 struct FqE {
-  static constexpr int W = 12;
-  ZC_HD static void mul(uint32_t* r, const uint32_t* a, const uint32_t* b) {
-    fp_mont_mul<FqP>(r, a, b);
-  }
-  ZC_HD static void sqr(uint32_t* r, const uint32_t* a) { fp_mont_mul<FqP>(r, a, a); }
-  ZC_HD static void add(uint32_t* r, const uint32_t* a, const uint32_t* b) {
-    fp_add<FqP>(r, a, b);
-  }
-  ZC_HD static void sub(uint32_t* r, const uint32_t* a, const uint32_t* b) {
-    fp_sub<FqP>(r, a, b);
-  }
-  ZC_HD static bool is_zero(const uint32_t* a) { return fp_is_zero<FqP>(a); }
-  ZC_HD static void set_zero(uint32_t* r) {
-    for (int i = 0; i < W; ++i) r[i] = 0;
-  }
-  ZC_HD static void set_one(uint32_t* r) {
-    for (int i = 0; i < W; ++i) r[i] = FqP::one(i);
-  }
-  ZC_HD static void neg(uint32_t* r, const uint32_t* a) {
-    uint32_t z[W];
-    set_zero(z);
-    fp_sub<FqP>(r, z, a);
-  }
+  static constexpr int W = 12;  // words of one coordinate
+  using V = Fq;
+  ZC_HD static V zero() { return fq_zero(); }
+  ZC_HD static V one() { return fq_one(); }
+  ZC_HD static V mul(const V& a, const V& b) { return fq_mul(a, b); }
+  ZC_HD static V sqr(const V& a) { return fq_mul(a, a); }
+  ZC_HD static V add(const V& a, const V& b) { return fq_add(a, b); }
+  ZC_HD static V sub(const V& a, const V& b) { return fq_sub(a, b); }
+  ZC_HD static V neg(const V& a) { return fq_neg(a); }
+  ZC_HD static V canon(const V& a) { return fq_canon(a); }
+  ZC_HD static bool is_zero(const V& a) { return fq_is_zero(a); }
+  ZC_HD static uint32_t& word(V& v, int, int w) { return v.w[w]; }
+  ZC_HD static uint32_t word(const V& v, int, int w) { return v.w[w]; }
 };
 
 struct Fq2E {
   static constexpr int W = 24;
-  static constexpr int H = 12;
-  ZC_HD static void mul(uint32_t* r, const uint32_t* a, const uint32_t* b) {
-    uint32_t aa[H], bb[H], sa[H], sb[H], o[H];
-    fp_mont_mul<FqP>(aa, a, b);
-    fp_mont_mul<FqP>(bb, a + H, b + H);
-    fp_add<FqP>(sa, a, a + H);
-    fp_add<FqP>(sb, b, b + H);
-    fp_mont_mul<FqP>(o, sa, sb);
-    fp_sub<FqP>(r, aa, bb);
-    fp_add<FqP>(sa, aa, bb);
-    fp_sub<FqP>(r + H, o, sa);
+  using V = Fq2;
+  ZC_HD static V zero() { return {fq_zero(), fq_zero()}; }
+  ZC_HD static V one() { return {fq_one(), fq_zero()}; }
+  ZC_HD static V mul(const V& a, const V& b) {
+    const Fq aa = fq_mul(a.c0, b.c0), bb = fq_mul(a.c1, b.c1);
+    const Fq o = fq_mul(fq_add(a.c0, a.c1), fq_add(b.c0, b.c1));
+    return {fq_sub(aa, bb), fq_sub(o, fq_add(aa, bb))};
   }
-  ZC_HD static void sqr(uint32_t* r, const uint32_t* a) {
-    uint32_t ab[H], s[H], d[H];
-    fp_mont_mul<FqP>(ab, a, a + H);
-    fp_add<FqP>(s, a, a + H);
-    fp_sub<FqP>(d, a, a + H);
-    fp_mont_mul<FqP>(r, s, d);
-    fp_add<FqP>(r + H, ab, ab);
+  ZC_HD static V sqr(const V& a) {
+    const Fq ab = fq_mul(a.c0, a.c1);
+    return {fq_mul(fq_add(a.c0, a.c1), fq_sub(a.c0, a.c1)), fq_add(ab, ab)};
   }
-  ZC_HD static void add(uint32_t* r, const uint32_t* a, const uint32_t* b) {
-    fp_add<FqP>(r, a, b);
-    fp_add<FqP>(r + H, a + H, b + H);
-  }
-  ZC_HD static void sub(uint32_t* r, const uint32_t* a, const uint32_t* b) {
-    fp_sub<FqP>(r, a, b);
-    fp_sub<FqP>(r + H, a + H, b + H);
-  }
-  ZC_HD static bool is_zero(const uint32_t* a) {
-    return fp_is_zero<FqP>(a) && fp_is_zero<FqP>(a + H);
-  }
-  ZC_HD static void set_zero(uint32_t* r) {
-    for (int i = 0; i < W; ++i) r[i] = 0;
-  }
-  ZC_HD static void set_one(uint32_t* r) {
-    for (int i = 0; i < H; ++i) { r[i] = FqP::one(i); r[H + i] = 0; }
-  }
-  ZC_HD static void neg(uint32_t* r, const uint32_t* a) {
-    uint32_t z[W];
-    set_zero(z);
-    sub(r, z, a);
-  }
+  ZC_HD static V add(const V& a, const V& b) { return {fq_add(a.c0, b.c0), fq_add(a.c1, b.c1)}; }
+  ZC_HD static V sub(const V& a, const V& b) { return {fq_sub(a.c0, b.c0), fq_sub(a.c1, b.c1)}; }
+  ZC_HD static V neg(const V& a) { return {fq_neg(a.c0), fq_neg(a.c1)}; }
+  ZC_HD static V canon(const V& a) { return {fq_canon(a.c0), fq_canon(a.c1)}; }
+  ZC_HD static bool is_zero(const V& a) { return fq_is_zero(a.c0) && fq_is_zero(a.c1); }
+  ZC_HD static uint32_t& word(V& v, int c, int w) { return c ? v.c1.w[w] : v.c0.w[w]; }
+  ZC_HD static uint32_t word(const V& v, int c, int w) { return c ? v.c1.w[w] : v.c0.w[w]; }
 };

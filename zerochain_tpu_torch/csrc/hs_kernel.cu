@@ -45,6 +45,14 @@
 // `add2sel_kernel` itself; the Msm no longer runs it.  It skips the add where
 // the select keeps x, which gives the TPU kernel's words.
 //
+// The adds are jacobian.cuh's, on values: the running piece, the loaded
+// point and the add's temporaries in registers, the multiply out of line on
+// values.  Until this form every operand went through a 2,880-byte frame of
+// out-of-line functions on pointers; now G1 has none, and G2, whose add
+// holds two 72-word points beside its temporaries, spills a few hundred
+// bytes (ptxas; PERF.md).  A carry slot or a bucket is written with
+// canonical words.
+//
 // Coordinates arrive as limb-major planes (word w of point i at w*count + i).
 // The bucket steps are plain functions of (row, thread), so the same code can
 // be stepped through on a CPU, thread by thread, without the CUDA toolkit.
@@ -90,18 +98,15 @@ ZC_HD void bs_bounds(int lo, int hi, int t, int T, int* s, int* e) {
 }
 
 template <class E>
-ZC_HD void bs_load(const BucketArgs& a, long long idx, uint32_t* q) {
-  constexpr int NP = 3 * E::W / 12;
-  for (int k = 0; k < NP; ++k)
-    for (int w = 0; w < 12; ++w) q[k * 12 + w] = a.planes[k][(long long)w * a.N + idx];
+ZC_HD Jac<E> bs_load(const BucketArgs& a, long long idx) {
+  return jac_gather<E>([&](int k, int w) { return a.planes[k][(long long)w * a.N + idx]; });
 }
 
 template <class E>
-ZC_HD void bs_write(const BucketArgs& a, long long m, int v, const uint32_t* pt) {
-  constexpr int NP = 3 * E::W / 12;
-  for (int k = 0; k < NP; ++k)
-    for (int w = 0; w < 12; ++w)
-      a.out[k][((long long)w * a.M + m) * a.nb + v] = pt[k * 12 + w];
+ZC_HD void bs_write(const BucketArgs& a, long long m, int v, const Jac<E>& pt) {
+  jac_scatter(pt, [&](int k, int w, uint32_t x) {
+    a.out[k][((long long)w * a.M + m) * a.nb + v] = x;
+  });
 }
 
 template <class E>
@@ -109,22 +114,33 @@ ZC_HD uint32_t* bs_carry(const BucketArgs& a, long long m, int t, int T, int slo
   return a.carry + (((m * T) + t) * 2 + slot) * (3 * E::W);
 }
 
+template <class E>
+ZC_HD Jac<E> bs_get_carry(const BucketArgs& a, long long m, int t, int T, int slot) {
+  const uint32_t* c = bs_carry<E>(a, m, t, T, slot);
+  return jac_gather<E>([&](int k, int w) { return c[k * 12 + w]; });
+}
+
+template <class E>
+ZC_HD void bs_put_carry(const BucketArgs& a, long long m, int t, int T, int slot,
+                        const Jac<E>& pt) {
+  uint32_t* c = bs_carry<E>(a, m, t, T, slot);
+  jac_scatter(pt, [&](int k, int w, uint32_t x) { c[k * 12 + w] = x; });
+}
+
 // Step 0: buckets t, t + T, ... of row m <- the identity.
 template <class E>
 ZC_HD void bs_fill(const BucketArgs& a, long long m, int t, int T) {
-  uint32_t id[3 * E::W];
-  jac_set_identity<E>(id);
-  for (int v = t; v < a.nb; v += T) bs_write<E>(a, m, v, id);
+  for (int v = t; v < a.nb; v += T) bs_write<E>(a, m, v, jac_identity<E>());
 }
 
 // The piece [p0, p1) of the run of `key` in slice [s, e): its bucket, or the
 // carry slot 0 (continues a run from before the slice) or 1 (runs on past it).
 template <class E>
 ZC_HD void bs_flush(const BucketArgs& a, long long m, int t, int T, int lo, int hi,
-                    int s, int e, int p0, int p1, int key, const uint32_t* acc) {
+                    int s, int e, int p0, int p1, int key, const Jac<E>& acc) {
   const int32_t* k = a.keys + m * a.N;
-  if (p0 == s && s > lo && k[s - 1] == key) jac_copy<E>(bs_carry<E>(a, m, t, T, 0), acc);
-  else if (p1 == e && e < hi && k[e] == key) jac_copy<E>(bs_carry<E>(a, m, t, T, 1), acc);
+  if (p0 == s && s > lo && k[s - 1] == key) bs_put_carry<E>(a, m, t, T, 0, acc);
+  else if (p1 == e && e < hi && k[e] == key) bs_put_carry<E>(a, m, t, T, 1, acc);
   else bs_write<E>(a, m, key, acc);
 }
 
@@ -136,19 +152,18 @@ ZC_HD void bs_slice(const BucketArgs& a, long long m, int lo, int hi, int t, int
   if (s >= e) return;
   const int32_t* k = a.keys + m * a.N;
   const int32_t* od = a.order + m * a.N;
-  uint32_t acc[3 * E::W], q[3 * E::W];
   int p0 = s, key = k[s];
-  bs_load<E>(a, od[s], acc);
+  Jac<E> acc = bs_load<E>(a, od[s]);
+#pragma unroll 1
   for (int pos = s + 1; pos < e; ++pos) {
     const int kp = k[pos];
     if (kp != key) {
       bs_flush<E>(a, m, t, T, lo, hi, s, e, p0, pos, key, acc);
-      bs_load<E>(a, od[pos], acc);
+      acc = bs_load<E>(a, od[pos]);
       p0 = pos;
       key = kp;
     } else {
-      bs_load<E>(a, od[pos], q);
-      jac_add<E>(acc, acc, q);
+      acc = jac_add(acc, bs_load<E>(a, od[pos]));
     }
   }
   bs_flush<E>(a, m, t, T, lo, hi, s, e, p0, e, key, acc);
@@ -165,12 +180,12 @@ ZC_HD void bs_merge(const BucketArgs& a, long long m, int lo, int hi, int t, int
   const int key = k[e - 1];
   if (k[e] != key) return;                                    // no run goes on
   if (s > lo && k[s - 1] == key && k[s] == key) return;       // it began before
-  uint32_t acc[3 * E::W];
-  jac_copy<E>(acc, bs_carry<E>(a, m, t, T, 1));
+  Jac<E> acc = bs_get_carry<E>(a, m, t, T, 1);
+#pragma unroll 1
   for (int u = t + 1;; ++u) {
     int su, eu;
     bs_bounds(lo, hi, u, T, &su, &eu);
-    jac_add<E>(acc, acc, bs_carry<E>(a, m, u, T, 0));
+    acc = jac_add(acc, bs_get_carry<E>(a, m, u, T, 0));
     if (!(eu < hi && k[eu - 1] == key && k[eu] == key)) break;
   }
   bs_write<E>(a, m, key, acc);
@@ -202,11 +217,9 @@ struct HsArgs {
 };
 
 template <class E>
-__device__ void load_point(uint32_t* dst, const uint32_t* const* planes,
-                           long long count, long long i) {
-  constexpr int NP = 3 * E::W / 12;
-  for (int k = 0; k < NP; ++k)
-    for (int w = 0; w < 12; ++w) dst[k * 12 + w] = planes[k][w * count + i];
+__device__ __forceinline__ Jac<E> load_point(const uint32_t* const* planes,
+                                             long long count, long long i) {
+  return jac_gather<E>([&](int k, int w) { return planes[k][w * count + i]; });
 }
 
 template <class E>
@@ -214,18 +227,9 @@ __global__ void __launch_bounds__(128)
 hs_kernel(HsArgs a, long long count) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= count) return;
-  constexpr int NP = 3 * E::W / 12;
-  uint32_t X[3 * E::W], R[3 * E::W];
-  load_point<E>(X, a.x, count, i);
-  if (a.f[i] | a.keep[i]) {
-    jac_copy<E>(R, X);
-  } else {
-    uint32_t XL[3 * E::W];
-    load_point<E>(XL, a.xl, count, i);
-    jac_add<E>(R, XL, X);
-  }
-  for (int k = 0; k < NP; ++k)
-    for (int w = 0; w < 12; ++w) a.out[k][w * count + i] = R[k * 12 + w];
+  Jac<E> R = load_point<E>(a.x, count, i);
+  if (!(a.f[i] | a.keep[i])) R = jac_add(load_point<E>(a.xl, count, i), R);
+  jac_scatter(R, [&](int k, int w, uint32_t x) { a.out[k][w * count + i] = x; });
 }
 
 }  // namespace

@@ -1,139 +1,173 @@
 // Short-Weierstrass group law in Jacobian coordinates (y^2 = x^3 + b),
-// generic over the coordinate field E (FqE for G1, Fq2E for G2).
+// generic over the coordinate field E (FqE for G1, Fq2E for G2), on values.
 //
-// A point is 3*E::W words: X, Y, Z; infinity <=> Z == 0.  The formulas and
-// their degenerate-case handling are those of the fused TPU kernels
-// (zerochain_tpu/ec/pallas_ec.py: _double_planes, _add_planes, _madd_planes):
-// dbl-2009-l, add-2007-bl and its Z2 in {0, 1} specialisation, with
+// A point is Jac<E>: X, Y, Z, each an E::V; infinity <=> Z = 0.  The
+// formulas and their degenerate-case handling are those of the fused TPU
+// kernels (zerochain_tpu/ec/pallas_ec.py: _double_planes, _add_planes,
+// _madd_planes): dbl-2009-l, add-2007-bl and its Z2 in {0, 1}
+// specialisation, with
 //   P = inf -> Q;  Q = inf -> P;  P = Q -> double(P);  P = -Q -> (1, 1, 0).
 // The TPU kernels compute every case and select by mask; a thread here
-// branches, which gives the same words because every field result is
-// canonical.  r may alias p or q.
+// branches.  Coordinates are lazy (field.cuh): every zero test takes the
+// class, and jac_scatter writes canonical words, so the words that leave a
+// thread equal those of any other correct implementation.
+//
+// Design: the formulas take and return values and are inlined into the
+// kernels; the one thing out of line is the Fq multiply (fq_mul, one
+// instance an image), called on values.  No array of a point or of a
+// temporary has its address taken, so the operands of every multiply pass
+// in registers and the G1 kernels have 0-byte frames; a G2 full add, two
+// 72-word points beside its temporaries, passes 255 registers and spills
+// (PERF.md).  Inlining a formula costs its additions and the calls' register
+// moves; the multiplies, ~600 instructions each, are not repeated at every
+// site (a G1 mixed add with its 11 multiplies inlined is several times that
+// size, which is what made the inlined form of earlier versions slow).
+//
+// Points move between planes and values by jac_gather / jac_scatter: word j
+// of a point (coordinate j / W, then component, then word) is word j % 12 of
+// plane j / 12.  The loops are unrolled, so every index is a constant.
 #pragma once
 #include "fq2.cuh"
 
 template <class E>
-ZC_HD void jac_copy(uint32_t* r, const uint32_t* p) {
-  for (int i = 0; i < 3 * E::W; ++i) r[i] = p[i];
+struct Jac {
+  typename E::V x, y, z;
+};
+
+template <class E>
+ZC_HD typename E::V& jac_coord(Jac<E>& p, int k) { return k == 0 ? p.x : k == 1 ? p.y : p.z; }
+template <class E>
+ZC_HD const typename E::V& jac_coord(const Jac<E>& p, int k) {
+  return k == 0 ? p.x : k == 1 ? p.y : p.z;
+}
+
+// Word j of the point's 3 * E::W words.
+template <class E>
+ZC_HD uint32_t& jac_word(Jac<E>& p, int j) {
+  return E::word(jac_coord(p, j / E::W), (j % E::W) / 12, j % 12);
+}
+template <class E>
+ZC_HD uint32_t jac_word(const Jac<E>& p, int j) {
+  return E::word(jac_coord(p, j / E::W), (j % E::W) / 12, j % 12);
+}
+
+// The point whose word w of plane k is get(k, w).
+template <class E, class Get>
+ZC_HD Jac<E> jac_gather(Get get) {
+  Jac<E> p;
+#pragma unroll
+  for (int j = 0; j < 3 * E::W; ++j) jac_word(p, j) = get(j / 12, j % 12);
+  return p;
 }
 
 template <class E>
-ZC_HD void jac_set_identity(uint32_t* r) {
-  E::set_one(r);
-  E::set_one(r + E::W);
-  E::set_zero(r + 2 * E::W);
+ZC_HD Jac<E> jac_canon(const Jac<E>& p) {
+  return {E::canon(p.x), E::canon(p.y), E::canon(p.z)};
+}
+
+// put(k, w, word): the canonical words of p, plane by plane.
+template <class E, class Put>
+ZC_HD void jac_scatter(const Jac<E>& p, Put put) {
+  const Jac<E> c = jac_canon(p);
+#pragma unroll
+  for (int j = 0; j < 3 * E::W; ++j) put(j / 12, j % 12, jac_word(c, j));
 }
 
 template <class E>
-ZC_HD bool jac_is_identity(const uint32_t* p) { return E::is_zero(p + 2 * E::W); }
-
-template <class E>
-ZC_NOINLINE void jac_double(uint32_t* r, const uint32_t* p) {
-  constexpr int W = E::W;
-  const uint32_t *X = p, *Y = p + W, *Z = p + 2 * W;
-  uint32_t a[W], b[W], c[W], t[W], d[W], e[W], f[W], x3[W], y3[W], z3[W];
-  E::sqr(a, X);
-  E::sqr(b, Y);
-  E::sqr(c, b);
-  E::add(t, X, b);
-  E::sqr(t, t);
-  E::sub(d, t, a);
-  E::sub(d, d, c);
-  E::add(d, d, d);
-  E::add(e, a, a);
-  E::add(e, e, a);
-  E::sqr(f, e);
-  E::add(t, d, d);
-  E::sub(x3, f, t);
-  E::add(c, c, c);
-  E::add(c, c, c);
-  E::add(c, c, c);  // 8c
-  E::sub(t, d, x3);
-  E::mul(t, e, t);
-  E::sub(y3, t, c);
-  E::mul(z3, Y, Z);
-  E::add(z3, z3, z3);
-  for (int i = 0; i < W; ++i) { r[i] = x3[i]; r[W + i] = y3[i]; r[2 * W + i] = z3[i]; }
-}
-
-// Shared tail of add and madd once u1, s1, h, rr = s2 - s1 are known.
-// z3 must already hold the Z coordinate.
-template <class E>
-ZC_HD void jac_add_tail(uint32_t* r, const uint32_t* u1, const uint32_t* s1,
-                        const uint32_t* h, const uint32_t* rr, const uint32_t* z3) {
-  constexpr int W = E::W;
-  uint32_t i[W], j[W], r2[W], v[W], x3[W], y3[W], t[W];
-  E::add(i, h, h);
-  E::sqr(i, i);
-  E::mul(j, h, i);
-  E::add(r2, rr, rr);
-  E::mul(v, u1, i);
-  E::sqr(x3, r2);
-  E::sub(x3, x3, j);
-  E::add(t, v, v);
-  E::sub(x3, x3, t);
-  E::mul(j, s1, j);  // s1 * j
-  E::sub(t, v, x3);
-  E::mul(t, r2, t);
-  E::add(j, j, j);
-  E::sub(y3, t, j);
-  for (int k = 0; k < W; ++k) { r[k] = x3[k]; r[W + k] = y3[k]; r[2 * W + k] = z3[k]; }
+ZC_HD Jac<E> jac_identity() {
+  return {E::one(), E::one(), E::zero()};
 }
 
 template <class E>
-ZC_NOINLINE void jac_add(uint32_t* r, const uint32_t* p, const uint32_t* q) {
-  constexpr int W = E::W;
-  if (jac_is_identity<E>(p)) { jac_copy<E>(r, q); return; }
-  if (jac_is_identity<E>(q)) { jac_copy<E>(r, p); return; }
-  const uint32_t *X1 = p, *Y1 = p + W, *Z1 = p + 2 * W;
-  const uint32_t *X2 = q, *Y2 = q + W, *Z2 = q + 2 * W;
-  uint32_t z1z1[W], z2z2[W], u1[W], u2[W], s1[W], s2[W], h[W], rr[W], z3[W];
-  E::sqr(z1z1, Z1);
-  E::sqr(z2z2, Z2);
-  E::mul(u1, X1, z2z2);
-  E::mul(u2, X2, z1z1);
-  E::mul(s1, Y1, Z2);
-  E::mul(s1, s1, z2z2);
-  E::mul(s2, Y2, Z1);
-  E::mul(s2, s2, z1z1);
-  E::sub(h, u2, u1);
-  E::sub(rr, s2, s1);
-  if (E::is_zero(h)) {
-    if (E::is_zero(rr)) jac_double<E>(r, p);
-    else jac_set_identity<E>(r);
-    return;
+ZC_HD bool jac_is_identity(const Jac<E>& p) { return E::is_zero(p.z); }
+
+// dbl-2009-l: 2M + 5S (no case: infinity gives Z = 0).
+template <class E>
+ZC_HD Jac<E> jac_double(const Jac<E>& p) {
+  using V = typename E::V;
+  const V a = E::sqr(p.x), b = E::sqr(p.y), c = E::sqr(b);
+  V d = E::sub(E::sub(E::sqr(E::add(p.x, b)), a), c);
+  d = E::add(d, d);
+  const V e = E::add(E::add(a, a), a);
+  const V x3 = E::sub(E::sqr(e), E::add(d, d));
+  V c8 = E::add(c, c);
+  c8 = E::add(c8, c8);
+  c8 = E::add(c8, c8);
+  const V y3 = E::sub(E::mul(e, E::sub(d, x3)), c8);
+  const V z3 = E::mul(p.y, p.z);
+  return {x3, y3, E::add(z3, z3)};
+}
+
+// Shared tail of add and madd once u1, s1, h, rr = s2 - s1 and Z3 are known.
+template <class E>
+ZC_HD Jac<E> jac_add_tail(const typename E::V& u1, const typename E::V& s1,
+                          const typename E::V& h, const typename E::V& rr,
+                          const typename E::V& z3) {
+  using V = typename E::V;
+  const V i = E::sqr(E::add(h, h));
+  const V j = E::mul(h, i);
+  const V r2 = E::add(rr, rr);
+  const V v = E::mul(u1, i);
+  const V x3 = E::sub(E::sub(E::sqr(r2), j), E::add(v, v));
+  const V s1j = E::mul(s1, j);
+  const V y3 = E::sub(E::mul(r2, E::sub(v, x3)), E::add(s1j, s1j));
+  return {x3, y3, z3};
+}
+
+// add-2007-bl: 11M + 5S.  The products are taken in the order that ends the
+// operands' coordinates soonest (p stays for P = Q).
+template <class E>
+ZC_HD Jac<E> jac_add(const Jac<E>& p, const Jac<E>& q) {
+  using V = typename E::V;
+  if (jac_is_identity(p)) return q;
+  if (jac_is_identity(q)) return p;
+  const V z2z2 = E::sqr(q.z);
+  const V u1 = E::mul(p.x, z2z2);
+  const V s1 = E::mul(E::mul(p.y, q.z), z2z2);
+  const V z1z1 = E::sqr(p.z);
+  const V zs = E::sub(E::sub(E::sqr(E::add(p.z, q.z)), z1z1), z2z2);
+  const V h = E::sub(E::mul(q.x, z1z1), u1);
+  const V rr = E::sub(E::mul(E::mul(q.y, p.z), z1z1), s1);
+  if (E::is_zero(h)) return E::is_zero(rr) ? jac_double(p) : jac_identity<E>();
+  return jac_add_tail<E>(u1, s1, h, rr, E::mul(zs, h));
+}
+
+// Mixed add, q's Z in {0 (infinity), one}: 7M + 4S.
+template <class E>
+ZC_HD Jac<E> jac_madd(const Jac<E>& p, const Jac<E>& q) {
+  using V = typename E::V;
+  if (jac_is_identity(p)) return q;
+  if (jac_is_identity(q)) return p;
+  const V z1z1 = E::sqr(p.z);
+  const V u2 = E::mul(q.x, z1z1);
+  const V s2 = E::mul(E::mul(q.y, p.z), z1z1);
+  const V h = E::sub(u2, p.x), rr = E::sub(s2, p.y);
+  if (E::is_zero(h)) return E::is_zero(rr) ? jac_double(p) : jac_identity<E>();
+  const V z3 = E::mul(p.z, h);
+  return jac_add_tail<E>(p.x, p.y, h, rr, E::add(z3, z3));
+}
+
+// k * p for k >= 1, MSB-first double-and-add.
+template <class E>
+ZC_HD Jac<E> jac_small_mul(const Jac<E>& p, int k) {
+  int top = 30;
+  while (!((k >> top) & 1)) --top;
+  Jac<E> r = p;
+#pragma unroll 1
+  for (int b = top - 1; b >= 0; --b) {
+    r = jac_double(r);
+    if ((k >> b) & 1) r = jac_add(r, p);
   }
-  E::add(z3, Z1, Z2);
-  E::sqr(z3, z3);
-  E::sub(z3, z3, z1z1);
-  E::sub(z3, z3, z2z2);
-  E::mul(z3, z3, h);
-  jac_add_tail<E>(r, u1, s1, h, rr, z3);
+  return r;
 }
 
-// Mixed add: q's Z is 0 (infinity) or one.
+#ifdef __CUDACC__
+// The point of lane (lane ^ s) of the warp, by shuffles of its words.
 template <class E>
-ZC_NOINLINE void jac_madd(uint32_t* r, const uint32_t* p, const uint32_t* q) {
-  constexpr int W = E::W;
-  if (jac_is_identity<E>(p)) { jac_copy<E>(r, q); return; }
-  if (jac_is_identity<E>(q)) { jac_copy<E>(r, p); return; }
-  const uint32_t *X1 = p, *Y1 = p + W, *Z1 = p + 2 * W;
-  const uint32_t *X2 = q, *Y2 = q + W;
-  uint32_t z1z1[W], u2[W], s2[W], h[W], rr[W], z3[W];
-  E::sqr(z1z1, Z1);
-  E::mul(u2, X2, z1z1);
-  E::mul(s2, Y2, Z1);
-  E::mul(s2, s2, z1z1);
-  E::sub(h, u2, X1);
-  E::sub(rr, s2, Y1);
-  if (E::is_zero(h)) {
-    if (E::is_zero(rr)) jac_double<E>(r, p);
-    else jac_set_identity<E>(r);
-    return;
-  }
-  E::mul(z3, Z1, h);
-  E::add(z3, z3, z3);
-  uint32_t x1[W], y1[W];  // r may alias p
-  for (int k = 0; k < W; ++k) { x1[k] = X1[k]; y1[k] = Y1[k]; }
-  jac_add_tail<E>(r, x1, y1, h, rr, z3);
+__device__ __forceinline__ Jac<E> jac_shfl_xor(const Jac<E>& p, int s) {
+  Jac<E> r;
+#pragma unroll
+  for (int j = 0; j < 3 * E::W; ++j) jac_word(r, j) = __shfl_xor_sync(0xffffffffu, jac_word(p, j), s);
+  return r;
 }
+#endif

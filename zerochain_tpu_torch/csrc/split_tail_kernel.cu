@@ -64,14 +64,17 @@
 // The tail's intermediate points live in a global scratch area of the
 // program, which stays in L1/L2; __syncthreads() orders its phases, and no
 // phase writes an entry that another thread touches in it.  Every add takes
-// its operands from the thread's own arrays, copied in and out: the field
-// multiply is out of line and reads its operands word by word in its inner
-// loop, which from the scratch area would be an L2 round trip each.
+// its operands as register values loaded from there, and writes canonical
+// words back.
 //
-// The lane loop is kept out of line (ZC_NOINLINE), as column_scan_lane is:
-// the inlined G2 column scan faults when one lane of a warp doubles beside
-// general adds (tools/column_scan_inline.py); chip_smoke.py plants such a
-// lane in its check of the lane pass.
+// The adds are jacobian.cuh's, on values, with the multiply out of line on
+// values: the lane pass and the G1 tail have no local-memory frame (the
+// form on word arrays and pointers had frames of up to 3,408 bytes); the G2
+// tail, whose full adds hold two 72-word points beside their temporaries,
+// spills (ptxas; PERF.md).  The lane loop is inline: the fault of the inlined G2 column scan of that form (a
+// lane of a warp doubling beside general adds, tools/column_scan_inline.py)
+// came with its local memory; chip_smoke.py plants such a lane in its check
+// of the lane pass.
 //
 // Both kernels are plain functions of (program, lane) and (program, thread),
 // so the same code can be stepped through on a CPU, thread by thread,
@@ -100,18 +103,14 @@ struct SplitArgs {
 
 ZC_HD int st_abs(int v) { return v < 0 ? -v : v; }
 
-// Point i of a (12, count) array of planes <-> 3 * E::W words.
+// Point i of a (12, count) array of planes, as a value; and back (canonical).
 template <class E>
-ZC_HD void st_get(const uint32_t* const* planes, long long count, long long i, uint32_t* q) {
-  constexpr int NP = 3 * E::W / 12;
-  for (int k = 0; k < NP; ++k)
-    for (int w = 0; w < 12; ++w) q[k * 12 + w] = planes[k][w * count + i];
+ZC_HD Jac<E> st_get(const uint32_t* const* planes, long long count, long long i) {
+  return jac_gather<E>([&](int k, int w) { return planes[k][w * count + i]; });
 }
 template <class E>
-ZC_HD void st_put(uint32_t* const* planes, long long count, long long i, const uint32_t* q) {
-  constexpr int NP = 3 * E::W / 12;
-  for (int k = 0; k < NP; ++k)
-    for (int w = 0; w < 12; ++w) planes[k][w * count + i] = q[k * 12 + w];
+ZC_HD void st_put(uint32_t* const* planes, long long count, long long i, const Jac<E>& q) {
+  jac_scatter(q, [&](int k, int w, uint32_t x) { planes[k][w * count + i] = x; });
 }
 
 // #{i : |d_i| >= t} of row m by bisection (t = 1: the non-zero count).
@@ -139,22 +138,20 @@ ZC_HD int st_pick(const SplitArgs& a, long long m, int p) {
 // digit, the one at each pick to its slot, the last to the lane totals; and,
 // for vl < nb, slot vl <- the identity unless a pick has magnitude vl.
 template <class E>
-ZC_NOINLINE void sl_lane(const SplitArgs& a, long long m, int vl) {
-  constexpr int PW = 3 * E::W;
+ZC_HD void sl_lane(const SplitArgs& a, long long m, int vl) {
   const int D = a.N / ZC_ST_LANES;
   const int32_t* dg = a.digits + m * a.N;
   const int32_t* od = a.order + m * a.N;
-  uint32_t run[PW], q[PW];
-  jac_set_identity<E>(run);
+  Jac<E> run = jac_identity<E>();
   if (vl < a.nb) {
     const int c = vl ? st_count(a, m, vl) : 0;
     if (c == 0 || st_abs(dg[c - 1]) != vl) st_put<E>(a.slots, a.M * a.nb, m * a.nb + vl, run);
   }
+#pragma unroll 1
   for (int p = vl * D; p < vl * D + D && dg[p] != 0; ++p) {
-    st_get<E>(a.planes, a.N, od[p], q);
-    if (dg[p] < 0) E::neg(q + E::W, q + E::W);
-    if (p == vl * D) jac_copy<E>(run, q);
-    else jac_madd<E>(run, run, q);
+    Jac<E> q = st_get<E>(a.planes, a.N, od[p]);
+    if (dg[p] < 0) q.y = E::neg(q.y);
+    run = p == vl * D ? q : jac_madd(run, q);
     const int v = st_pick(a, m, p);
     if (v >= 0) st_put<E>(a.slots, a.M * a.nb, m * a.nb + v, run);
   }
@@ -177,6 +174,15 @@ ZC_HD uint32_t* st_rel(const SplitArgs& a, long long m, int v) {
 template <class E>
 ZC_HD uint32_t* st_picked(const SplitArgs& a, long long m, int v) {
   return st_area<E>(a, m, 2, a.nb + v);
+}
+
+template <class E>
+ZC_HD Jac<E> st_ld(const uint32_t* x) {
+  return jac_gather<E>([&](int k, int w) { return x[k * 12 + w]; });
+}
+template <class E>
+ZC_HD void st_st(uint32_t* x, const Jac<E>& p) {
+  jac_scatter(p, [&](int k, int w, uint32_t v) { x[k * 12 + w] = v; });
 }
 
 // Lanes a thread folds: L = ceil(nl / T) of the nl = ceil(nnz / D) lanes
@@ -202,18 +208,16 @@ ZC_HD int st_first_pick(const SplitArgs& a, long long m, int nnz, int lane) {
 // to area 0, entry t.
 template <class E>
 ZC_HD void st_fold(const SplitArgs& a, long long m, int nnz, int t, int T) {
-  constexpr int PW = 3 * E::W;
   const int D = a.N / ZC_ST_LANES;
   const int len = st_len(a, nnz, T), nl = (nnz + D - 1) / D;
-  uint32_t rel[PW], q[PW];
-  jac_set_identity<E>(rel);
+  Jac<E> rel = jac_identity<E>();
+#pragma unroll 1
   for (int lane = t * len; lane < t * len + len && lane < nl; ++lane) {
     const int v = st_first_pick(a, m, nnz, lane);
-    if (v >= 0) jac_copy<E>(st_rel<E>(a, m, v), rel);
-    st_get<E>(a.lanes, a.M * ZC_ST_LANES, m * ZC_ST_LANES + lane, q);
-    jac_add<E>(rel, rel, q);
+    if (v >= 0) st_st<E>(st_rel<E>(a, m, v), rel);
+    rel = jac_add(rel, st_get<E>(a.lanes, a.M * ZC_ST_LANES, m * ZC_ST_LANES + lane));
   }
-  jac_copy<E>(st_area<E>(a, m, 0, t), rel);
+  st_st<E>(st_area<E>(a, m, 0, t), rel);
 }
 
 // Phase 2, one level k (d = 2^k < T) of the inclusive scan of the T segment
@@ -222,13 +226,9 @@ ZC_HD void st_fold(const SplitArgs& a, long long m, int nnz, int t, int T) {
 template <class E>
 ZC_HD void st_scan(const SplitArgs& a, long long m, int k, int t) {
   const int d = 1 << k;
-  uint32_t x[3 * E::W], l[3 * E::W];
-  jac_copy<E>(x, st_area<E>(a, m, k & 1, t));
-  if (t >= d) {
-    jac_copy<E>(l, st_area<E>(a, m, k & 1, t - d));
-    jac_add<E>(x, l, x);
-  }
-  jac_copy<E>(st_area<E>(a, m, (k + 1) & 1, t), x);
+  Jac<E> x = st_ld<E>(st_area<E>(a, m, k & 1, t));
+  if (t >= d) x = jac_add(st_ld<E>(st_area<E>(a, m, k & 1, t - d)), x);
+  st_st<E>(st_area<E>(a, m, (k + 1) & 1, t), x);
 }
 
 // Phase 3: the picks, slots v = t + 1, t + 1 + T, ...: where a position p
@@ -237,24 +237,19 @@ ZC_HD void st_scan(const SplitArgs& a, long long m, int k, int t) {
 // and the pick is that offset plus the lane pass's in-lane prefix at p.
 // Every thread with a pick adds in step with the others of its warp.
 template <class E>
-ZC_NOINLINE void st_picks(const SplitArgs& a, long long m, int nnz, int scan_buf,
-                          int t, int T) {
-  constexpr int PW = 3 * E::W;
+ZC_HD void st_picks(const SplitArgs& a, long long m, int nnz, int scan_buf,
+                    int t, int T) {
   const int D = a.N / ZC_ST_LANES;
   const int len = st_len(a, nnz, T);
-  uint32_t off[PW], q[PW];
+#pragma unroll 1
   for (int v = t + 1; v < a.nb; v += T) {
     const int c = st_count(a, m, v);
     if (c == 0 || st_abs(a.digits[m * a.N + c - 1]) != v) continue;
     const int lane = (c - 1) / D, seg = lane / len;
-    jac_copy<E>(off, st_rel<E>(a, m, st_first_pick(a, m, nnz, lane)));
-    if (seg > 0) {
-      jac_copy<E>(q, st_area<E>(a, m, scan_buf, seg - 1));
-      jac_add<E>(off, q, off);
-    }
-    st_get<E>(a.slots, a.M * a.nb, m * a.nb + v, q);
-    jac_add<E>(q, off, q);
-    jac_copy<E>(st_picked<E>(a, m, v), q);
+    Jac<E> off = st_ld<E>(st_rel<E>(a, m, st_first_pick(a, m, nnz, lane)));
+    if (seg > 0) off = jac_add(st_ld<E>(st_area<E>(a, m, scan_buf, seg - 1)), off);
+    st_st<E>(st_picked<E>(a, m, v),
+             jac_add(off, st_get<E>(a.slots, a.M * a.nb, m * a.nb + v)));
   }
 }
 
@@ -262,12 +257,17 @@ ZC_NOINLINE void st_picks(const SplitArgs& a, long long m, int nnz, int scan_buf
 // position c_(b+1) - 1), the identity where c_(b+1) = 0 and for b >= nb - 1.
 template <class E>
 ZC_HD void st_buckets(const SplitArgs& a, long long m, int t, int T) {
+  constexpr int PW = 3 * E::W;
   for (int b = t; b < a.S; b += T) {
     uint32_t* x = st_area<E>(a, m, 0, b);
     const int c = b + 1 < a.nb ? st_count(a, m, b + 1) : 0;
     const int v = c ? st_abs(a.digits[m * a.N + c - 1]) : 0;
-    if (c == 0 || v >= a.nb) jac_set_identity<E>(x);
-    else jac_copy<E>(x, st_picked<E>(a, m, v));
+    if (c == 0 || v >= a.nb) {
+      st_st<E>(x, jac_identity<E>());
+    } else {
+      const uint32_t* y = st_picked<E>(a, m, v);
+      for (int j = 0; j < PW; ++j) x[j] = y[j];
+    }
   }
 }
 
@@ -275,18 +275,15 @@ ZC_HD void st_buckets(const SplitArgs& a, long long m, int t, int T) {
 // i < h.
 template <class E>
 ZC_HD void st_tree(const SplitArgs& a, long long m, int h, int t, int T) {
-  uint32_t x[3 * E::W], y[3 * E::W];
-  for (int i = t; i < h; i += T) {
-    jac_copy<E>(x, st_area<E>(a, m, 0, i));
-    jac_copy<E>(y, st_area<E>(a, m, 0, i + h));
-    jac_add<E>(x, x, y);
-    jac_copy<E>(st_area<E>(a, m, 0, i), x);
-  }
+#pragma unroll 1
+  for (int i = t; i < h; i += T)
+    st_st<E>(st_area<E>(a, m, 0, i),
+             jac_add(st_ld<E>(st_area<E>(a, m, 0, i)), st_ld<E>(st_area<E>(a, m, 0, i + h))));
 }
 
 template <class E>
 ZC_HD void st_write(const SplitArgs& a, long long m) {
-  st_put<E>(a.out, a.M, m, st_area<E>(a, m, 0, 0));
+  st_put<E>(a.out, a.M, m, st_ld<E>(st_area<E>(a, m, 0, 0)));
 }
 
 // The area that holds the scan of T segment totals: log2 T levels from area 0.

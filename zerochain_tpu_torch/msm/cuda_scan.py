@@ -133,10 +133,20 @@ def _fn():
                        ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fn._typed = True
     return fn
+
+
+def _part_words(g2: bool, M: int, nb: int) -> int:
+    """Words of window_totals' scratch for M rows of digits below nb (the
+    kernel's own count: partial points and drop slots a row, two columns a
+    thread)."""
+    fn = _build.lib("totals_kernel").zc_window_totals_part_words
+    fn.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    return fn(int(g2), M, nb)
 
 
 # The largest nb window_totals takes: the kernel multiplies a running sum by
@@ -212,14 +222,15 @@ def window_totals(F, points, sorted_digits, order, nb: int):
     if M:
         in_ptrs = (ctypes.c_void_p * len(planes))(*[t.data_ptr() for t in planes])
         out_ptrs = (ctypes.c_void_p * len(outs))(*[t.data_ptr() for t in outs])
-        # per row: up to 4 warps' partial sums and a count of finished warps
-        part = torch.empty(M * 4 * 3 * 12 * F.ncomp, dtype=torch.int32,
+        # per row: up to 4 warps' partial sums, the running sums at the
+        # drops and a count of finished warps; per thread: two columns
+        part = torch.empty(_part_words(F.ncomp == 2, M, nb), dtype=torch.int32,
                            device=dev)
         done = torch.zeros(M, dtype=torch.int32, device=dev)
         with torch.cuda.device(dev):
             rc = _fn()(int(F.ncomp == 2), in_ptrs, sd.data_ptr(),
                        od.data_ptr(), out_ptrs, part.data_ptr(),
-                       done.data_ptr(), N, M, MIN_RUN,
+                       done.data_ptr(), N, M, nb, MIN_RUN,
                        torch.cuda.current_stream().cuda_stream)
         launches[("g1" if F.ncomp == 1 else "g2") + "_window_totals"] += 1
         if rc != 0:

@@ -1,15 +1,18 @@
-"""Reproduce the fault of the column_scan lane loop when it is inlined.
+"""Run the column_scan lane loop inlined and out of line on the lanes that
+made its earlier form fault.
 
     python3 -m zerochain_tpu_torch.tools.column_scan_inline    # needs a CUDA card
 
 Builds ``csrc/column_scan_kernel.cu`` twice into the ignored ``_build/``
-directory: as it is (the lane loop out of line) and with the lane loop
-inlined (its ``ZC_NOINLINE`` swapped for ``ZC_HD``).  Each build then scans
-1 program x 2 depths of G1 and of G2 points, one fresh process per case,
-with three inputs in which lane 5 of every warp takes another branch of
-``jac_madd`` than the warp's other lanes (which take the general add):
-P + P (the call to ``jac_double``), P + (-P) (the identity) and P + inf (a
-copy).  Prints one JSON line per case, ``fault`` or whether the words equal
+directory: as it is (the lane loop inlined, on register values) and with
+the lane loop out of line (its ``ZC_HD`` swapped for ``ZC_NOINLINE``).  The
+form on word arrays and pointers that came before faulted with an illegal
+address in its inlined G2 build.  Each build then scans 1 program x 2
+depths of G1 and of G2 points, one fresh process per case, with three
+inputs in which lane 5 of every warp takes another branch of ``jac_madd``
+than the warp's other lanes (which take the general add): P + P (the
+doubling), P + (-P) (the identity) and P + inf (a copy).  Prints one JSON
+line per case, ``fault`` or whether the words equal
 ``column_scan_plain``'s, then, where ``cuobjdump`` exists, one line with the
 number of local loads and stores that take their address from a uniform
 register in each build's two kernels.
@@ -25,7 +28,7 @@ import shutil
 import subprocess
 import sys
 
-BUILDS = ("noinline", "inline")
+BUILDS = ("inline", "noinline")
 CASES = ("double", "identity", "copy")
 
 
@@ -41,12 +44,12 @@ def build() -> None:
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     src = (_build.CSRC / "column_scan_kernel.cu").read_text()
-    inlined = src.replace("ZC_NOINLINE void column_scan_lane",
-                          "ZC_HD void column_scan_lane")
-    if inlined == src:
-        raise RuntimeError("column_scan_lane is no longer marked ZC_NOINLINE")
+    outlined = src.replace("ZC_HD void column_scan_lane",
+                           "ZC_NOINLINE void column_scan_lane")
+    if outlined == src:
+        raise RuntimeError("column_scan_lane is no longer marked ZC_HD")
     procs = []
-    for name, text in (("noinline", src), ("inline", inlined)):
+    for name, text in (("inline", src), ("noinline", outlined)):
         cu = _build.BUILD_DIR / f"column_scan_{name}_repro.cu"
         cu.write_text(text)
         procs.append(subprocess.Popen(

@@ -20,7 +20,9 @@ generates the ConfidentialTransfer CRS and prints JSON lines:
   a point, each checked word for word against its plain version;
 - with --prove: ``ConfidentialProver.prove`` of that batch, one warm call
   then three timed ones (host clock around a synchronize, stage times with
-  ``sync_stages``), and the proofs' equality across the three;
+  ``sync_stages``), and the proofs' equality across the three; and the
+  SHA-256 of the warm call's 32 proofs (``prove_digest``), which two
+  checkouts that prove alike print alike;
 - with --hs: the bucket MSM path, ``ConfidentialProver(msm_impl="hs")`` on
   the same CRS, one warm call then three timed ones of that batch (stage
   times, launches by kernel where the checkout counts them, torch.roll's
@@ -158,9 +160,13 @@ def main() -> int:
     if args.prove:
         import time
 
+        import hashlib
+
         rs = _rs()
         prover.sync_stages = True
         first = prover.prove(assignments, rs=rs)
+        emit(kernel="prove_digest", sha256=hashlib.sha256(repr(
+            [(p.a, p.b, p.c) for p in first]).encode()).hexdigest())
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
