@@ -34,7 +34,12 @@ run exits non-zero (there is no CPU fallback):
            split_lanes / split_tail, bucket_sums, bucket_fold and Horner at
            window widths c = 4 and c = 10 on 2,048 CRS points (launches 0);
            and the bucket MSM's 'assoc' mode against 'hs' there, line
-           msm_assoc)
+           msm_assoc; the NTT kernels (ntt.fwd, ntt.inv, ntt.quotient, and
+           at prove's shape ntt.coset, ntt.icoset, ntt.divide_by_z) at
+           (8, B, d), the quotient on the batch's own evaluations, and at
+           (8, d), create_proof's, against the plan's plain stage loop;
+           the quotient once more with the counters zeroed: it fails the
+           run with more than 15 NTT launches or any K1 launch)
   prove    one batch of 32 proofs (warm run, then a timed run with the launch
            counters zeroed just before and read just after)
   prove_hs     the same batch through the bucket MSM (msm_impl="hs": per
@@ -88,7 +93,9 @@ values and bench_assignments(32):
                 chain on the batch's 14 bases and bits, the two fold groups,
                 and window_totals, split_lanes / split_tail and bucket_sums
                 on the real digits of the G1 chunk and the G2 chunk that
-                hold the batch's heaviest bucket
+                hold the batch's heaviest bucket; the NTT kernels at
+                (8, 32, 65,536), the quotient on the batch's evaluations,
+                with the same launch check
   anon_prove, anon_prove_hs, anon_prove_split
                 as prove, prove_hs, prove_split, with the same checks; the
                 three give the same proofs
@@ -142,14 +149,16 @@ A field or point kernel's "ms" is its time per launch inside a CUDA graph of
 20 launches (the card's own time); "eager_ms" is the time per launch of a
 back-to-back loop through the wrapper, which the host's launch cost bounds.
 
-All comparisons are exact (tolerance 0): field kernels and the inverse,
+All comparisons are exact (tolerance 0): field kernels and the inverse, the
+NTT's transforms and quotient,
 point add/double, the ladder, the Horner combine, the bucket fold, the
 Jubjub chains, hs_add_select, column_scan and split_lanes on identical
 words, window_totals, bucket_sums and split_tail (which add in another order
 than their plain versions) after normalisation to affine coordinates.  Each
 kernel's launches are counted in the timed run of the path that uses it:
-prove for K1-K3, the inverse and the Jubjub chains, prove_hs for bucket_sums
-and the bucket fold, prove_split for split_lanes and split_tail, the anon_
+prove for K1-K3, the inverse, the Jubjub chains and the NTT at (8, B, d),
+prove_hs for bucket_sums and the bucket fold, prove_split for split_lanes and
+split_tail, the backend phase's create_proof for the NTT at (8, d), the anon_
 runs for the entries at the anonymous shapes, the block's timed verification
 for the .reddsa entries and the batched pairing call for the .pairing entries;
 hs_add_select and column_scan are checked but on no path.
@@ -405,8 +414,107 @@ def ff_entries(spec, shape, gen, ops=FF_OPS, tag="", path=None, off_path=()):
     return out
 
 
+NTT_LIMIT = 15  # NTT kernel launches of one quotient at d <= 2^22
+
+
+def quotient_inputs(prover, assignments):
+    """The quotient's padded evaluations of the batch, (8, B, d) each, as
+    ``ConfidentialProver._h_scalars`` hands them to ``ntt.quotient``."""
+    inputs_host, witness_fn = prover._witness_fns()
+    aux, public = witness_fn(**inputs_host(assignments, prover.device))
+    evals = prover.matrices.eval(torch.cat([public, aux], dim=1))
+    B = aux.shape[-1]
+    pad = torch.zeros((8, prover.d - prover.m, B), dtype=torch.int32,
+                      device="cuda")
+    return [torch.cat([v, pad], dim=1).movedim(1, -1) for v in evals]
+
+
+def ntt_transform_ops(lg: int, rows: int, scalings: int) -> int:
+    """32-bit multiply-adds of one transform of rows rows of 2^lg elements:
+    a Montgomery multiply, an add and a subtract a butterfly, and a multiply
+    an element for each pre- or post-scaling."""
+    d = 1 << lg
+    return lg * (d // 2) * rows * (FR_MUL_OPS + 16) + scalings * d * rows * FR_MUL_OPS
+
+
+def ntt_entries(prover, shape, gen, path, tag, evals=None, extra=False):
+    """The NTT kernels (``ntt/ntt.py`` over ``csrc/ntt_kernel.cu``) at
+    ``shape`` = (8, *batch, d) against the plan's plain stage loop, word for
+    word: ntt, intt and the quotient (on ``evals``, the batch's own
+    evaluations, where given); with ``extra`` also coset_ntt (off every
+    path: no path pre-scales), icoset_ntt and divide_by_z_on_coset (off
+    every path: the quotient folds 1/Z into its pointwise step).  Then the
+    quotient once more with every counter zeroed: more than NTT_LIMIT NTT
+    launches (at d <= 2^22), or any K1 launch, fails the run."""
+    from zerochain_tpu_torch.ff import cuda_ff
+    from zerochain_tpu_torch.ff import limbs as L
+    from zerochain_tpu_torch.ntt import ntt as tntt
+
+    plan = prover.plan
+    d, lg = plan.d, plan.lg
+    rows = 1
+    for n in shape[1:-1]:
+        rows *= n
+    n_pass = len(tntt.schedule(lg))
+    x = random_elements(L.FR, tuple(shape[1:]), gen)
+    words = 8 * 4 * rows * d
+    one = ntt_transform_ops(lg, rows, 0)
+    cases = [("fwd", plan.ntt, plan.ntt_plain, ("pass_fwd",), 0, False),
+             ("inv", plan.intt, plan.intt_plain, ("pass_inv",), 1, False)]
+    if extra:
+        cases += [("coset", plan.coset_ntt, plan.coset_ntt_plain, None, 1, True),
+                  ("icoset", plan.icoset_ntt, plan.icoset_ntt_plain,
+                   ("pass_inv",), 1, False),
+                  ("divide_by_z", plan.divide_by_z_on_coset,
+                   plan.divide_by_z_on_coset_plain, None, None, True)]
+    out = []
+    for name, kern, plain, keys, scalings, off in cases:
+        got = kern(x)
+        want, plain_ms = timed(lambda: plain(x))
+        err = max_abs_err([got], [want])
+        if scalings is None:  # one multiply an element
+            bnd, by = bound_ms(2 * words, rows * d * FR_MUL_OPS)
+        else:
+            bnd, by = bound_ms(2 * words, ntt_transform_ops(lg, rows, scalings))
+        out.append(dict(
+            name=f"ntt.{name}.{tag}", route="cuda",
+            source="zerochain_tpu_torch/csrc/ntt_kernel.cu", replaces=TPU_FF,
+            counter=None if keys is None else ("ntt", *keys), path=path,
+            off_path=off, shape=list(shape), equal=err == 0, max_abs_err=err,
+            ms=time_ms(lambda: kern(x), 10), plain_ms=plain_ms, bound_ms=bnd,
+            bound_by=by, library_ms=None,
+            passes=0 if scalings is None else n_pass))
+    if evals is None:
+        evals = [random_elements(L.FR, tuple(shape[1:]), gen) for _ in range(3)]
+    got = tntt.quotient(plan, *evals)
+    want, plain_ms = timed(lambda: plan.quotient_plain(*evals))
+    err = max_abs_err([got], [want])
+    # 7 transforms, 4 vector scalings (3 n^-1 g^i, 1 n^-1 g^-i), and
+    # (a b - c) / Z: two multiplies and a subtract an element
+    ops = 7 * one + 4 * rows * d * FR_MUL_OPS + rows * d * (2 * FR_MUL_OPS + 16)
+    bnd, by = bound_ms(4 * words, ops)
+    reset_counters()
+    tntt.quotient(plan, *evals)
+    torch.cuda.synchronize()
+    n_ntt = sum(tntt.launches.values())
+    n_k1 = sum(cuda_ff.launches.values())
+    out.append(dict(
+        name=f"ntt.quotient.{tag}", route="cuda",
+        source="zerochain_tpu_torch/csrc/ntt_kernel.cu", replaces=TPU_FF,
+        counter=("ntt", "pass_fwd", "pass_inv", "pointwise"), path=path,
+        shape=list(shape), equal=err == 0, max_abs_err=err,
+        ms=time_ms(lambda: tntt.quotient(plan, *evals), 5), plain_ms=plain_ms,
+        bound_ms=bnd, bound_by=by, library_ms=None, passes=n_pass,
+        quotient_launches=n_ntt, quotient_k1_launches=n_k1))
+    if (lg <= 22 and n_ntt > NTT_LIMIT) or n_k1:
+        raise SystemExit(f"ntt.quotient.{tag}: {n_ntt} NTT kernel launches "
+                         f"(at most {NTT_LIMIT}) and {n_k1} K1 launches (none)")
+    return out
+
+
 def phase_kernels(prover, B, gen, assignments):
     from zerochain_tpu_torch.ec import cuda_ec
+    from zerochain_tpu_torch.prover import MiniProver
     from zerochain_tpu_torch.ec.fields import FqOps, Fq2Ops
     from zerochain_tpu_torch.ff import limbs as L
     from zerochain_tpu_torch.msm import cuda_scan
@@ -418,12 +526,13 @@ def phase_kernels(prover, B, gen, assignments):
     # batch, (8, B, d/2); Fq at the H query's normalisation, (12, d).
     d = prover.d
     shapes = {"Fq": (d,), "Fr": (B, d // 2), "Fs": (B, d // 2)}
+    # the prover has no Fs op; since the inverse is one kernel, no path
+    # squares in Fr; since the quotient runs on the NTT kernels, the
+    # MiniCommit path subtracts nothing in Fr (its witness has no subtract)
+    fr_off = ("mont_sqr",) + (("sub",) if isinstance(prover, MiniProver) else ())
     for spec in (L.FQ, L.FR, L.FS):
-        # the prover has no Fs op; since the inverse is one kernel, no path
-        # squares in Fr
         entries += ff_entries(spec, shapes[spec.name], gen, off_path=(
-            FF_OPS if spec.name == "Fs" else
-            ("mont_sqr",) if spec.name == "Fr" else ()))
+            FF_OPS if spec.name == "Fs" else fr_off if spec.name == "Fr" else ()))
 
     # ---- K2: point add / double on real CRS points (arbitrary Z), at the
     # path's shapes: B points (the assembly's adds), 3B (its widest chain),
@@ -462,6 +571,12 @@ def phase_kernels(prover, B, gen, assignments):
 
     entries += chain_entries(prover, B, gen)
     entries += witness_entries(prover, B, gen, assignments)
+
+    # ---- the NTT: prove's quotient at (8, B, d) on the batch's own
+    # evaluations, and create_proof's at (8, d) (TorchBackend, B = 1)
+    entries += ntt_entries(prover, (8, B, d), gen, "prove", "prove",
+                           evals=quotient_inputs(prover, assignments), extra=True)
+    entries += ntt_entries(prover, (8, d), gen, "backend", "backend")
 
     # ---- K3: window_totals on one CRS chunk, all windows x B programs in
     # one launch, uniform and zero-heavy digits; P = Q, P = -Q planted at the
@@ -1612,8 +1727,9 @@ def reset_counters():
     from zerochain_tpu_torch.ec import cuda_ec, cuda_jubjub
     from zerochain_tpu_torch.ff import cuda_ff
     from zerochain_tpu_torch.msm import cuda_scan
+    from zerochain_tpu_torch.ntt import ntt as tntt
 
-    for mod in (cuda_ff, cuda_ec, cuda_scan, cuda_jubjub):
+    for mod in (cuda_ff, cuda_ec, cuda_scan, cuda_jubjub, tntt):
         mod.reset_launches()
     comm.reset_stats()
 
@@ -1904,6 +2020,7 @@ def confidential_phases(mini, profile, gen, counters, path_counts):
     torch.cuda.synchronize()
     proof_s = time.time() - t0
     counts = {k: dict(v) for k, v in counters.items()}
+    path_counts["backend"] = counts
     if ints_of([backend_proof]) != ints_of(proofs[:1]):
         raise SystemExit("backend: create_proof differs from prove's proof 0")
     emit("backend", generate_parameters_seconds=gen_s,
@@ -1970,7 +2087,9 @@ def anonymous_phases(profile, gen, counters, path_counts):
                   "anon_witness")
     t0 = time.time()
     entries = (anon_witness_entries(prover, B, gen, assignments)
-               + anon_msm_entries(prover, B, assignments))
+               + anon_msm_entries(prover, B, assignments)
+               + ntt_entries(prover, (8, B, prover.d), gen, "anon_prove", "anon",
+                             evals=quotient_inputs(prover, assignments)))
     emit("anon_kernels", seconds=time.time() - t0,
          all_equal=all(e["equal"] for e in entries),
          kernels=[{k: e[k] for k in ("name", "shape", "equal", "ms", "plain_ms",
@@ -2501,6 +2620,7 @@ def main() -> int:
     from zerochain_tpu_torch.ec import cuda_ec, cuda_jubjub
     from zerochain_tpu_torch.ff import cuda_ff
     from zerochain_tpu_torch.msm import cuda_scan
+    from zerochain_tpu_torch.ntt import ntt as tntt
 
     t_run = time.time()
     card = card_line()
@@ -2531,7 +2651,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     counters = {"ff": cuda_ff.launches, "ec": cuda_ec.launches,
-                "scan": cuda_scan.launches, "jj": cuda_jubjub.launches}
+                "scan": cuda_scan.launches, "jj": cuda_jubjub.launches,
+                "ntt": tntt.launches}
     path_counts = {}
     entries = []
     proofs = None
@@ -2554,8 +2675,8 @@ def main() -> int:
 
     for e in entries:
         counter = e.pop("counter")  # None: a shape no path runs
-        e["launches"] = 0 if counter is None else (
-            path_counts[e.get("path", "prove")][counter[0]][counter[1]])
+        e["launches"] = 0 if counter is None else sum(  # (group, key, ...)
+            path_counts[e.get("path", "prove")][counter[0]][k] for k in counter[1:])
     idle = [e["name"] for e in entries
             if not e.get("off_path") and e["launches"] == 0]
     if idle:
@@ -2575,12 +2696,15 @@ def main() -> int:
     # field-kernel launches; chunk, heaviest_bucket_g1 / _g2: the anonymous
     # chunk an entry ran on, and the batch's largest bucket over all chunks;
     # plain_lanes: the lanes the plain version ran on (its plain_ms);
-    # window_c: an MSM kernel's window width where it is not the paths' 8
+    # window_c: an MSM kernel's window width where it is not the paths' 8;
+    # passes: an NTT's pass launches a transform; quotient_launches,
+    # quotient_k1_launches: the NTT and K1 launches of one quotient alone
     extras = ("eager_ms", "one_lane_ms", "nonzero_digits", "row_nonzero_q",
               "n_madd", "n_add", "heaviest_bucket", "heaviest_at", "rows_checked",
               "path", "off_path", "serial_mul", "us_per_mul", "k1_loop_ms",
               "chunk", "heaviest_bucket_g1", "heaviest_bucket_g2",
-              "plain_lanes", "window_c")
+              "plain_lanes", "window_c", "passes", "quotient_launches",
+              "quotient_k1_launches")
     print(json.dumps({"kernels": [
         {**{k: e[k] for k in keys}, **{k: e[k] for k in extras if k in e}}
         for e in entries]}), flush=True)

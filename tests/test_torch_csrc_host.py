@@ -597,3 +597,70 @@ def test_split_tail_threads(host_bin, name, T):
         text += " ".join(map(str, c["sd"].reshape(-1).tolist())) + "\n"
         got = _outs(name, _run(host_bin, text), (M,))
         assert c["tg"].to_affine_host(got) == want
+
+
+class _HostNtt:
+    """Stands in for the card in ``NttPlan.kernel``: each pass and pointwise
+    step of ``csrc/ntt_kernel.cu`` run by the host build, with a tile of
+    2^tile_lg elements; counts its launches."""
+
+    def __init__(self, host_bin, tile_lg):
+        self.host_bin, self.tile_lg, self.count = host_bin, tile_lg, 0
+
+    def _words(self, line, like):
+        w = torch.tensor([int(x, 16) for x in line], dtype=torch.int64)
+        return ((w << 32) >> 32).to(torch.int32).reshape(like.shape)
+
+    def ntt_pass(self, src, dst, lg, s0, k, tw, pre, post, post_const, inverse):
+        post_mode = 0 if post is None else 1 if post_const else 2
+        text = (f"ntt {lg} {src.shape[1]} {self.tile_lg} {s0} {k} "
+                f"{int(pre is not None)} {post_mode}\n{_hex(src)}\n{_hex(tw)}\n")
+        text += "".join(_hex(v) + "\n" for v in (pre, post) if v is not None)
+        (line,) = _run(self.host_bin, text)
+        dst.copy_(self._words(line, dst))
+        self.count += 1
+
+    def pointwise(self, a, b, c, z, out):
+        count = a.numel() // TL.FR.n
+        text = f"ntp {count} {int(b is not None)}\n" + "".join(
+            _hex(v) + "\n" for v in (a, b, c, z) if v is not None)
+        (line,) = _run(self.host_bin, text)
+        out.copy_(self._words(line, out))
+        self.count += 1
+
+
+@pytest.mark.parametrize("layout", ["m1", "m2", "view"])
+@pytest.mark.parametrize("d,tile_lg", [(8, 4), (64, 3), (256, 3), (256, 4)])
+def test_ntt_passes(host_bin, d, tile_lg, layout):
+    """ntt_kernel.cu's passes stepped block by block with a reduced tile of
+    2^tile_lg elements (d = 64 and 256 in 2-3 passes, d = 8 in one pass of
+    two groups a tile), through ``NttPlan.kernel`` (the card path's
+    schedule, tables and scalings): ntt, intt, coset_ntt, icoset_ntt,
+    divide_by_z_on_coset and the quotient equal the plan's plain versions
+    on the CPU word for word, at one row, two rows and a transposed
+    DistNtt-like view; the quotient in 3 (2 passes) + 1 + passes launches."""
+    from zerochain_tpu_torch.ntt import ntt as tntt
+
+    rng = np.random.RandomState(d + tile_lg)
+    plan = tntt.plan_for(d, "cpu")
+    shape = {"m1": (d,), "m2": (2, d), "view": (2, d, 3)}[layout]
+
+    def rand():
+        n = int(np.prod(shape))
+        vals = [int.from_bytes(rng.bytes(40), "little") % R for _ in range(n)]
+        vals[:3] = [0, 1, R - 1]
+        x = TL.FR.array(vals, "cpu").reshape(TL.FR.n, *shape)
+        return x.transpose(-1, -2) if layout == "view" else x
+
+    launcher = _HostNtt(host_bin, tile_lg)
+    n_pass = len(tntt.schedule(plan.lg, tile_lg))
+    assert n_pass == max(1, -(-plan.lg // tile_lg))
+    x = rand()
+    for name in ("ntt", "intt", "coset_ntt", "icoset_ntt", "divide_by_z_on_coset"):
+        got = plan.kernel(name, x, launcher=launcher)
+        assert torch.equal(got, getattr(plan, name)(x)), name
+    evs = [rand() for _ in range(3)]
+    launcher.count = 0
+    got = plan.kernel("quotient", *evs, launcher=launcher)
+    assert torch.equal(got, tntt.quotient(plan, *evs))
+    assert launcher.count == 3 * 2 * n_pass + 1 + n_pass

@@ -1,8 +1,9 @@
 // Host build of the port's CUDA device code (zerochain_tpu_torch/csrc): the
 // headers, the per-thread steps of totals_kernel.cu, column_scan_kernel.cu,
 // split_tail_kernel.cu and the bucket sums of hs_kernel.cu, the one-lane chain programs of
-// group_program.cuh, the Fermat inverse of ff_kernels.cu and the per-lane
-// Jubjub chains of jubjub_kernels.cu compile as plain C++,
+// group_program.cuh, the Fermat inverse of ff_kernels.cu, the per-lane
+// Jubjub chains of jubjub_kernels.cu and the NTT passes and pointwise step of
+// ntt_kernel.cu compile as plain C++,
 // so their arithmetic can be held against the plain PyTorch versions where
 // there is no CUDA toolkit.  Driven by tests/test_torch_csrc_host.py.
 //
@@ -23,6 +24,10 @@
 //   jj        p q                    -> jj_add, jj_double(p), jj_add in place
 //   jvar n_bits lanes  bx by bits    -> cur, then res, one line each
 //   jfix n_win lanes  lx ly          -> the window sums, one line
+//   ntt lg M tile_lg s0 k pre post  src tw [pre] [post]
+//                                    -> one NTT pass (pre 0/1; post 0, 1 constant,
+//                                       2 vector), the words it writes, one line
+//   ntp count bc  a [b c] z          -> (a b - c) z, or a z where bc = 0, one line
 // Threads are stepped through in order, a barrier being the end of a loop
 // over the threads.  k3: T threads a row (T = 0: as many as the kernel gives
 // the row for its non-zero count, R non-zero digits a thread at least),
@@ -40,6 +45,7 @@
 #include "group_program.cuh"
 #include "hs_kernel.cu"
 #include "jubjub_kernels.cu"
+#include "ntt_kernel.cu"
 #include "split_tail_kernel.cu"
 #include "totals_kernel.cu"
 
@@ -309,6 +315,40 @@ template <class E> static void column_scan(long long M, int T) {
   for (auto& p : planes) { for (auto x : p) printf("%08x ", x); printf("\n"); }
 }
 
+static void ntt_pass_host(int lg, long long M, int tile_lg, int s0, int k,
+                          int pre_mode, int post_mode) {
+  const long long d = 1LL << lg;
+  const std::vector<uint32_t> src = read_words(8 * (M << lg));
+  const std::vector<uint32_t> tw = read_words(8 * (d > 1 ? d - 1 : 1));
+  const std::vector<uint32_t> pre = read_words(pre_mode ? 8 * d : 0);
+  const std::vector<uint32_t> post = read_words(post_mode == 1 ? 8 : post_mode ? 8 * d : 0);
+  NttPassArgs A = ntt_args(M, lg, s0, k, tile_lg);
+  A.tw = tw.data();
+  A.pre = pre_mode ? pre.data() : nullptr;
+  A.post = post_mode ? post.data() : nullptr;
+  A.post_const = post_mode == 1;
+  std::vector<uint32_t> dst(src.size(), 0), tile(8 * A.pitch);
+  const long long blocks = (A.groups + (1LL << A.glg) - 1) >> A.glg;
+  for (long long blk = 0; blk < blocks; blk++) {
+    for (int t = 0; t < A.n_tile; t++) ntt_load(A, src.data(), tile.data(), blk, ntt_elem(A, t, false));
+    for (int j = 0; j < k; j++)
+      for (int b = 0; b < A.n_tile / 2; b++) ntt_butterfly(A, tile.data(), blk, j, b);
+    for (int t = 0; t < A.n_tile; t++) ntt_store(A, tile.data(), dst.data(), blk, ntt_elem(A, t, s0 == 0));
+  }
+  print_words(dst);
+}
+
+static void ntt_pointwise_host(long long count, int bc) {
+  const std::vector<uint32_t> a = read_words(8 * count);
+  const std::vector<uint32_t> b = read_words(bc ? 8 * count : 0), c = read_words(bc ? 8 * count : 0);
+  const std::vector<uint32_t> z = read_words(8);
+  std::vector<uint32_t> out(8 * count);
+  for (long long i = 0; i < count; i++)
+    ntt_pointwise_elem(a.data(), bc ? b.data() : nullptr, bc ? c.data() : nullptr,
+                       z.data(), out.data(), count, i);
+  print_words(out);
+}
+
 int main() {
   char op[16];
   while (scanf("%15s", op) == 1) {
@@ -328,6 +368,15 @@ int main() {
       int n_win; long long lanes;
       if (scanf("%d %lld", &n_win, &lanes) != 2) return 2;
       jj_fixed(n_win, lanes);
+    }
+    else if (!strcmp(op, "ntt")) {
+      int lg, tile_lg, s0, k, pre, post; long long M;
+      if (scanf("%d %lld %d %d %d %d %d", &lg, &M, &tile_lg, &s0, &k, &pre, &post) != 7) return 2;
+      ntt_pass_host(lg, M, tile_lg, s0, k, pre, post);
+    } else if (!strcmp(op, "ntp")) {
+      int bc; long long count;
+      if (scanf("%lld %d", &count, &bc) != 2) return 2;
+      ntt_pointwise_host(count, bc);
     }
     else if (!strcmp(op, "g1")) point_ops<FqE>();
     else if (!strcmp(op, "g2")) point_ops<Fq2E>();

@@ -19,9 +19,11 @@ divide-by-z -> icoset_ntt (``DistNtt.quotient``).
 
 Every rank passes the replicated (8, *batch, d) Montgomery word tensor and
 gets the replicated result; rank r owns rows r * d1 / n .. (r + 1) * d1 / n
-before the exchange and the same block of columns r after it.  The field
-work is K1 launches (``cuda_ff``); the exchanges are ``comm.all_to_all`` and
-``comm.all_gather`` along dim 0.
+before the exchange and the same block of columns r after it.  The local
+transforms are ``NttPlan``'s (on the card its pass kernel, on a contiguous
+copy of the transposed views), the twiddle and coset multiplies K1 launches
+(``cuda_ff``); the exchanges are ``comm.all_to_all`` and ``comm.all_gather``
+along dim 0.
 """
 
 from __future__ import annotations

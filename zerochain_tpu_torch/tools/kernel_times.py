@@ -1,7 +1,8 @@
 """Time window_totals and the point chains of one checkout of the port.
 
     python3 zerochain_tpu_torch/tools/kernel_times.py [--root DIR] [--tag T]
-        [--prove] [--witness] [--hs] [--split] [--no-synthetic] [--no-chains]
+        [--prove] [--witness] [--hs] [--split] [--quotient] [--no-synthetic]
+        [--no-chains] [--no-totals]
 
 Imports ``zerochain_tpu_torch`` and ``chip_smoke`` from DIR (default: the
 checkout this file is in), so that two checkouts can be timed in one call on
@@ -39,7 +40,14 @@ generates the ConfidentialTransfer CRS and prints JSON lines:
   checkout has them, its Jubjub chain launches; and the field kernels'
   time a launch at the witness stage's shapes, (8, 160), (8, 192) and
   (8, 1) Fr elements: a back-to-back loop through the wrapper (eager_ms)
-  and inside a CUDA graph (ms).
+  and inside a CUDA graph (ms);
+- with --quotient: the quotient stage of that batch split into the
+  constraint matvec, the padding and ``ntt.quotient``, three times each
+  (CUDA events), with the quotient's launches by kernel (K1 and, where the
+  checkout has them, the NTT kernels) and the SHA-256 of its output; and
+  each transform of the plan alone (ntt, intt, coset_ntt, icoset_ntt,
+  divide_by_z_on_coset) at the batch's (8, 32, d);
+- unless --no-totals: window_totals on the batch's real digits.
 
 Needs a CUDA card; the first line is the card's name and power limit.
 """
@@ -63,6 +71,8 @@ def main() -> int:
     ap.add_argument("--split", action="store_true")
     ap.add_argument("--no-synthetic", action="store_true")
     ap.add_argument("--no-chains", action="store_true")
+    ap.add_argument("--quotient", action="store_true")
+    ap.add_argument("--no-totals", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, str(pathlib.Path(args.root).resolve()))
 
@@ -181,6 +191,10 @@ def main() -> int:
         backend_times(prover, assignments, emit)
     if args.split:
         path_times(prover, assignments, emit, "split")
+    if args.quotient:
+        quotient_times(prover, assignments, emit)
+    if args.no_totals:
+        return 0
     inputs_host, witness_fn = prover._witness_fns()
     aux, public = witness_fn(**inputs_host(assignments, prover.device))
     preps = prover._digits(*prover._quotient(aux, public))
@@ -267,6 +281,53 @@ def path_times(prover, assignments, emit, path):
         emit(kernel=f"prove_{path}", seconds=secs, stages=other.last_timings,
              launches=launches, torch_roll_calls=rolls[0],
              same_proofs=[(p.a, p.b, p.c) for p in out] == ref)
+
+
+def quotient_times(prover, assignments, emit):
+    """The quotient stage of the imported checkout on the batch: the
+    matvec, the padding and ``ntt.quotient`` (CUDA events, three times),
+    the quotient's launches and output digest; then each transform alone."""
+    import hashlib
+
+    import torch
+
+    import chip_smoke
+    from zerochain_tpu_torch.ff import cuda_ff
+    from zerochain_tpu_torch.ff import limbs as L
+    from zerochain_tpu_torch.ntt import ntt as tntt
+
+    inputs_host, witness_fn = prover._witness_fns()
+    aux, public = witness_fn(**inputs_host(assignments, prover.device))
+    witness = torch.cat([public, aux], dim=1)
+    B, d, plan = witness.shape[-1], prover.d, prover.plan
+    zeros = torch.zeros((8, d - prover.m, B), dtype=torch.int32, device="cuda")
+    counts = getattr(tntt, "launches", None)  # None: a checkout before the NTT kernels
+
+    def pad(evals):
+        return [torch.cat([v, zeros], dim=1).movedim(1, -1) for v in evals]
+
+    tntt.quotient(plan, *pad(prover.matrices.eval(witness)))  # warm
+    for _ in range(3):
+        evals, matvec_ms = chip_smoke.timed(lambda: prover.matrices.eval(witness))
+        padded, pad_ms = chip_smoke.timed(lambda: pad(evals))
+        cuda_ff.reset_launches()
+        if counts is not None:
+            tntt.reset_launches()
+        h, ms = chip_smoke.timed(lambda: tntt.quotient(plan, *padded))
+        k1 = {k: v for k, v in cuda_ff.launches.items() if v}
+        n_ntt = None if counts is None else dict(counts)
+        _, stage_ms = chip_smoke.timed(lambda: prover._quotient(aux, public))
+        emit(kernel="quotient", shape=[8, B, d], matvec_ms=matvec_ms,
+             pad_ms=pad_ms, quotient_ms=ms, stage_ms=stage_ms,
+             k1_launches=k1, ntt_launches=n_ntt,
+             h_sha256=hashlib.sha256(h.cpu().numpy().tobytes()).hexdigest())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    x = chip_smoke.random_elements(L.FR, (B, d), gen)
+    for name in ("ntt", "intt", "coset_ntt", "icoset_ntt", "divide_by_z_on_coset"):
+        fn = getattr(plan, name)
+        emit(kernel=f"ntt.{name}", shape=[8, B, d],
+             ms=chip_smoke.time_ms(lambda: fn(x), 5))
 
 
 def backend_times(prover, assignments, emit):
