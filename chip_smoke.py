@@ -22,7 +22,10 @@ run exits non-zero (there is no CPU fallback):
   crs      ConfidentialProver.from_toxic_waste on the card
   witness  the batch's witness (confidential_witness) on the card, with its
            kernel launches counted, equal word for word to the CPU plain
-           path's for the first and the last proof
+           path's for the first and the last proof; it fails unless the
+           chains make their launches, the gadget aux one step and one
+           gadget-program launch (witness_kernel.cu), and the field kernels
+           at most 12 launches, 3 of them inversions
   kernels  every kernel wrapper against its plain PyTorch version on the card,
            on CRS points and random field elements at the main path's shapes
            (the chain kernels, ladder, Horner and the bucket fold, also in
@@ -30,7 +33,10 @@ run exits non-zero (there is no CPU fallback):
            tail's split_lanes / split_tail also on the digits of the batch
            the prove phases prove; the field inverse and
            the Jubjub chains at the witness stage's shapes, the chains also
-           against their former loop of field-kernel launches; window_totals,
+           against their former loop of field-kernel launches; the witness's
+           step kernel and gadget program (witness.steps, witness.gadgets)
+           on the batch's own chains, against their plain versions on the
+           first and the last proof; window_totals,
            split_lanes / split_tail, bucket_sums, bucket_fold and Horner at
            window widths c = 4 and c = 10 on 2,048 CRS points (launches 0);
            and the bucket MSM's 'assoc' mode against 'hs' there, line
@@ -85,12 +91,14 @@ values and bench_assignments(32):
 
   anon_crs      AnonymousProver.from_toxic_waste on the card
   anon_witness  the batch's anonymous witness against the CPU's (proofs 0
-                and 31), its launches: one var_chain (14 chains a proof) and
+                and 31), its launches: one var_chain (14 chains a proof),
                 three fixed_chain (the fixed-base chains, then the folds in
-                two groups)
+                two groups), one step launch and three gadget programs
+                (at most 17 field-kernel launches, 5 inversions)
   anon_kernels  the kernels at the anonymous shapes, against their plain
                 versions: ff.inv at the var chain's normalisation, the var
                 chain on the batch's 14 bases and bits, the two fold groups,
+                witness.steps.anon and witness.gadgets.anon (program "main"),
                 and window_totals, split_lanes / split_tail and bucket_sums
                 on the real digits of the G1 chunk and the G2 chunk that
                 hold the batch's heaviest bucket; the NTT kernels at
@@ -156,7 +164,8 @@ Jubjub chains, hs_add_select, column_scan and split_lanes on identical
 words, window_totals, bucket_sums and split_tail (which add in another order
 than their plain versions) after normalisation to affine coordinates.  Each
 kernel's launches are counted in the timed run of the path that uses it:
-prove for K1-K3, the inverse, the Jubjub chains and the NTT at (8, B, d),
+prove for K1-K3, the inverse, the Jubjub chains, the witness kernels and the
+NTT at (8, B, d),
 prove_hs for bucket_sums and the bucket fold, prove_split for split_lanes and
 split_tail, the backend phase's create_proof for the NTT at (8, d), the anon_
 runs for the entries at the anonymous shapes, the block's timed verification
@@ -197,11 +206,18 @@ MINI_TOXIC = dict(tau=424242, alpha=111, beta=222, gamma=333, delta=444)
 # bench.py's AnonymousTransfer CRS
 ANON_TOXIC = dict(tau=0xA11CE, alpha=0xB0B, beta=0xCA51, gamma=0xD00D,
                   delta=0xE66)
-# the witness stage's chain launches: one var_chain and one fixed_chain a
-# group (the anonymous folds are two more fixed_chain groups)
-CHAIN_LAUNCHES = {"mini": {"var_chain": 0, "fixed_chain": 1},
-                  "confidential": {"var_chain": 1, "fixed_chain": 1},
-                  "anonymous": {"var_chain": 1, "fixed_chain": 3}}
+# the witness stage's launches: one var_chain and one fixed_chain a group
+# (the anonymous folds are two more fixed_chain groups), one step launch and
+# one launch a gadget program (witness_kernel.cu), and at most k1 field-kernel
+# launches (the chains' normalisations and the range checks' to_mont), inv
+# of them inversions
+WITNESS_LAUNCHES = {
+    "mini": dict(jj={"var_chain": 0, "fixed_chain": 1},
+                 wit={"steps": 1, "gadgets": 0}, k1=4, inv=1),
+    "confidential": dict(jj={"var_chain": 1, "fixed_chain": 1},
+                         wit={"steps": 1, "gadgets": 1}, k1=12, inv=3),
+    "anonymous": dict(jj={"var_chain": 1, "fixed_chain": 3},
+                      wit={"steps": 1, "gadgets": 3}, k1=17, inv=5)}
 
 
 def emit(phase: str, **kw) -> None:
@@ -514,7 +530,6 @@ def ntt_entries(prover, shape, gen, path, tag, evals=None, extra=False):
 
 def phase_kernels(prover, B, gen, assignments):
     from zerochain_tpu_torch.ec import cuda_ec
-    from zerochain_tpu_torch.prover import MiniProver
     from zerochain_tpu_torch.ec.fields import FqOps, Fq2Ops
     from zerochain_tpu_torch.ff import limbs as L
     from zerochain_tpu_torch.msm import cuda_scan
@@ -527,9 +542,9 @@ def phase_kernels(prover, B, gen, assignments):
     d = prover.d
     shapes = {"Fq": (d,), "Fr": (B, d // 2), "Fs": (B, d // 2)}
     # the prover has no Fs op; since the inverse is one kernel, no path
-    # squares in Fr; since the quotient runs on the NTT kernels, the
-    # MiniCommit path subtracts nothing in Fr (its witness has no subtract)
-    fr_off = ("mont_sqr",) + (("sub",) if isinstance(prover, MiniProver) else ())
+    # squares in Fr; since the quotient runs on the NTT kernels and the
+    # witness's gadgets on witness_kernel.cu, no path subtracts in Fr
+    fr_off = ("mont_sqr", "sub")
     for spec in (L.FQ, L.FR, L.FS):
         entries += ff_entries(spec, shapes[spec.name], gen, off_path=(
             FF_OPS if spec.name == "Fs" else fr_off if spec.name == "Fr" else ()))
@@ -571,6 +586,7 @@ def phase_kernels(prover, B, gen, assignments):
 
     entries += chain_entries(prover, B, gen)
     entries += witness_entries(prover, B, gen, assignments)
+    entries += gadget_entries(prover, B, assignments)
 
     # ---- the NTT: prove's quotient at (8, B, d) on the batch's own
     # evaluations, and create_proof's at (8, d) (TorchBackend, B = 1)
@@ -815,6 +831,89 @@ def inv_entry(spec, shape, gen, off_path, tag=""):
         bound_ms=bnd, bound_by=by, library_ms=None)
 
 
+def gadget_entries(prover, B, assignments, tag="", path=None):
+    """The witness's step kernel (W1) and gadget program (W2, program
+    "main") at the path's shapes, on the batch's own witness up to them
+    (confidential_setup / anonymous_setup: host rows and normalised
+    chains): each kernel on all B proofs, its plain version on proofs 0 and
+    B - 1, word for word over the whole aux of those proofs.  Bounds: W1
+    the point entries and bits it reads and the rows it writes, W2 the rows
+    it loads and stores, or their multiplies (a Fermat power as its
+    multiplies), whichever is larger."""
+    import dataclasses
+
+    from zerochain_tpu_torch.prover import MiniProver
+    from zerochain_tpu_torch.prover import cuda_witness as cw
+    from zerochain_tpu_torch.prover import witness as wit
+    from zerochain_tpu_torch.prover import witness_anon as wa
+
+    if tag == ".anon":
+        plan, aux, jobs = wa.anonymous_setup(**wa.witness_inputs_host(assignments, "cuda"))
+    else:
+        if "pgk" not in assignments[0]:  # --mini: the ConfidentialTransfer batch
+            assignments = assignments_for(B, False)
+        plan, aux, jobs = wit.confidential_setup(**wit.witness_inputs_host(assignments,
+                                                                            "cuda"))
+    picks = [0, B - 1]
+    word = 8 * 4  # bytes of an Fr element
+    mini = isinstance(prover, MiniProver)
+
+    def two(t):
+        return None if t is None else t[..., picks].contiguous()
+
+    # ---- W1
+    few = [dataclasses.replace(j, points=tuple(two(t) for t in j.points), data=two(j.data))
+           for j in jobs]
+    want = aux[..., picks].clone()
+    cw.steps_plain(few, want)  # warm: the plain ops cache their constants
+    want = aux[..., picks].clone()
+    _, plain_ms = timed(lambda: cw.steps_plain(few, want))
+    cw.steps(jobs, aux)
+    err = max_abs_err([aux[..., picks]], [want])
+    muls = {cw.VAR: 9, cw.FIXED: 5, cw.FOLD: 5}
+    n_bytes = n_ops = 0
+    for j in jobs:
+        n = j.n_steps
+        reads = 4 * n - (2 if j.kind == cw.FIXED else 0)  # FIXED: n - 1 sums
+        n_bytes += (reads * word + (n if j.data is not None else 0)
+                    + j.n_rows * word) * B
+        n_ops += (n - (j.kind != cw.FOLD)) * muls[j.kind] * FR_MUL_OPS * B
+    bnd, by = bound_ms(n_bytes, n_ops)
+    out = [dict(
+        name="witness.steps" + tag, route="cuda",
+        source="zerochain_tpu_torch/csrc/witness_kernel.cu", replaces=TPU_FF,
+        counter=("wit", "steps"), shape=[8, plan.n_aux, B], jobs=len(jobs),
+        equal=err == 0, max_abs_err=err, ms=graph_ms(lambda: cw.steps(jobs, aux)),
+        eager_ms=time_ms(lambda: cw.steps(jobs, aux), 20), plain_ms=plain_ms,
+        plain_lanes=len(picks), bound_ms=bnd, bound_by=by, library_ms=None)]
+
+    # ---- W2, program "main"
+    prog = plan.programs["main"]
+    want = aux[..., picks].clone()
+    cw.gadgets_plain(prog, want)
+    want = aux[..., picks].clone()
+    _, plain_ms = timed(lambda: cw.gadgets_plain(prog, want))
+    cw.gadgets(prog, aux)
+    err = max_abs_err([aux[..., picks]], [want])
+    c = prog.counts
+    n_bytes = (c["load"] + c["store"]) * word * B
+    n_ops = (c["mul"] + c["inv"] * fermat_muls(wit.FR)) * FR_MUL_OPS * B
+    bnd, by = bound_ms(n_bytes, n_ops)
+    out.append(dict(
+        name="witness.gadgets" + tag, route="cuda",
+        source="zerochain_tpu_torch/csrc/witness_kernel.cu", replaces=TPU_FF,
+        counter=("wit", "gadgets"), off_path=mini, shape=[8, plan.n_aux, B],
+        program="main", stages=c["stages"], slots=c["slots"],
+        fermat_powers=c["inv"], equal=err == 0, max_abs_err=err,
+        ms=graph_ms(lambda: cw.gadgets(prog, aux)),
+        eager_ms=time_ms(lambda: cw.gadgets(prog, aux), 20), plain_ms=plain_ms,
+        plain_lanes=len(picks), bound_ms=bnd, bound_by=by, library_ms=None))
+    if path:
+        for e in out:
+            e["path"] = path
+    return out
+
+
 def jubjub_entry(name, shape, kern, plain, k1_loop, n_bytes, serial, lanes,
                  counter=None):
     """A Jubjub chain kernel against its plain version and its former loop
@@ -836,13 +935,14 @@ def jubjub_entry(name, shape, kern, plain, k1_loop, n_bytes, serial, lanes,
         library_ms=None)
 
 
-def phase_witness(prover, assignments, B, expected_chains, phase="witness"):
+def phase_witness(prover, assignments, B, expected, phase="witness"):
     """The batch's witness on the card, launches counted around it, against
     the CPU plain path's for the first and the last proof, word for word;
-    the chain launches must be expected_chains."""
+    the launches must be as ``expected`` says (WITNESS_LAUNCHES)."""
     from zerochain_tpu_torch.ec import cuda_ec, cuda_jubjub
     from zerochain_tpu_torch.ff import cuda_ff
     from zerochain_tpu_torch.msm import cuda_scan
+    from zerochain_tpu_torch.prover import cuda_witness
 
     inputs_host, witness_fn = prover._witness_fns()
     witness_fn(**inputs_host(assignments, prover.device))  # warm
@@ -854,6 +954,7 @@ def phase_witness(prover, assignments, B, expected_chains, phase="witness"):
     secs = time.time() - t0
     ff = {k: v for k, v in cuda_ff.launches.items() if v}
     jj = dict(cuda_jubjub.launches)
+    wit = dict(cuda_witness.launches)
     others = sum(cuda_ec.launches.values()) + sum(cuda_scan.launches.values())
     picks = [0, B - 1]
     t0 = time.time()
@@ -862,15 +963,19 @@ def phase_witness(prover, assignments, B, expected_chains, phase="witness"):
     equal = (torch.equal(aux[:, :, picks].cpu(), caux)
              and torch.equal(public[:, :, picks].cpu(), cpub))
     k1 = sum(ff.values())
+    k1_inv = sum(v for k, v in ff.items() if k.startswith("inv."))
     emit(phase, batch=B, seconds=secs, cpu_seconds_two_proofs=cpu_s,
-         aux=list(aux.shape), k1_launches=k1,
-         k1_launches_inv=sum(v for k, v in ff.items() if k.startswith("inv.")),
-         k1_by_op=ff, jubjub_launches=jj, other_launches=others,
-         equal_to_cpu=equal, proofs_checked=picks)
+         aux=list(aux.shape), k1_launches=k1, k1_launches_inv=k1_inv,
+         k1_by_op=ff, jubjub_launches=jj, witness_launches=wit,
+         other_launches=others, equal_to_cpu=equal, proofs_checked=picks)
     if not equal:
         raise SystemExit(f"{phase}: the card's aux/public differ from the CPU's")
-    if jj != expected_chains:
-        raise SystemExit(f"{phase}: chain launches {jj}, expected {expected_chains}")
+    if jj != expected["jj"] or wit != expected["wit"]:
+        raise SystemExit(f"{phase}: chain / witness kernel launches {jj} / {wit}, "
+                         f"expected {expected['jj']} / {expected['wit']}")
+    if k1 > expected["k1"] or k1_inv > expected["inv"]:
+        raise SystemExit(f"{phase}: {k1} field-kernel launches, {k1_inv} inversions; "
+                         f"at most {expected['k1']} and {expected['inv']}")
     return k1
 
 
@@ -1728,8 +1833,9 @@ def reset_counters():
     from zerochain_tpu_torch.ff import cuda_ff
     from zerochain_tpu_torch.msm import cuda_scan
     from zerochain_tpu_torch.ntt import ntt as tntt
+    from zerochain_tpu_torch.prover import cuda_witness
 
-    for mod in (cuda_ff, cuda_ec, cuda_scan, cuda_jubjub, tntt):
+    for mod in (cuda_ff, cuda_ec, cuda_scan, cuda_jubjub, tntt, cuda_witness):
         mod.reset_launches()
     comm.reset_stats()
 
@@ -1983,7 +2089,7 @@ def confidential_phases(mini, profile, gen, counters, path_counts):
 
     assignments = assignments_for(B, mini)
     phase_witness(prover, assignments, B,
-                  CHAIN_LAUNCHES["mini" if mini else "confidential"])
+                  WITNESS_LAUNCHES["mini" if mini else "confidential"])
     t0 = time.time()
     entries = phase_kernels(prover, B, gen, assignments)
     emit("kernels", seconds=time.time() - t0,
@@ -2083,10 +2189,11 @@ def anonymous_phases(profile, gen, counters, path_counts):
                    for q in ("a", "b1", "b2", "l", "h")})
 
     assignments = wa.bench_assignments(B)
-    phase_witness(prover, assignments, B, CHAIN_LAUNCHES["anonymous"],
+    phase_witness(prover, assignments, B, WITNESS_LAUNCHES["anonymous"],
                   "anon_witness")
     t0 = time.time()
     entries = (anon_witness_entries(prover, B, gen, assignments)
+               + gadget_entries(prover, B, assignments, ".anon", "anon_prove")
                + anon_msm_entries(prover, B, assignments)
                + ntt_entries(prover, (8, B, prover.d), gen, "anon_prove", "anon",
                              evals=quotient_inputs(prover, assignments)))
@@ -2621,6 +2728,7 @@ def main() -> int:
     from zerochain_tpu_torch.ff import cuda_ff
     from zerochain_tpu_torch.msm import cuda_scan
     from zerochain_tpu_torch.ntt import ntt as tntt
+    from zerochain_tpu_torch.prover import cuda_witness
 
     t_run = time.time()
     card = card_line()
@@ -2652,7 +2760,7 @@ def main() -> int:
     gen.manual_seed(0)
     counters = {"ff": cuda_ff.launches, "ec": cuda_ec.launches,
                 "scan": cuda_scan.launches, "jj": cuda_jubjub.launches,
-                "ntt": tntt.launches}
+                "ntt": tntt.launches, "wit": cuda_witness.launches}
     path_counts = {}
     entries = []
     proofs = None
@@ -2698,13 +2806,16 @@ def main() -> int:
     # plain_lanes: the lanes the plain version ran on (its plain_ms);
     # window_c: an MSM kernel's window width where it is not the paths' 8;
     # passes: an NTT's pass launches a transform; quotient_launches,
-    # quotient_k1_launches: the NTT and K1 launches of one quotient alone
+    # quotient_k1_launches: the NTT and K1 launches of one quotient alone;
+    # program, stages, slots, fermat_powers: a gadget program's name and
+    # size, its Fermat powers a proof; jobs: a step launch's emission blocks
     extras = ("eager_ms", "one_lane_ms", "nonzero_digits", "row_nonzero_q",
               "n_madd", "n_add", "heaviest_bucket", "heaviest_at", "rows_checked",
               "path", "off_path", "serial_mul", "us_per_mul", "k1_loop_ms",
               "chunk", "heaviest_bucket_g1", "heaviest_bucket_g2",
               "plain_lanes", "window_c", "passes", "quotient_launches",
-              "quotient_k1_launches")
+              "quotient_k1_launches", "program", "stages", "slots",
+              "fermat_powers", "jobs")
     print(json.dumps({"kernels": [
         {**{k: e[k] for k in keys}, **{k: e[k] for k in extras if k in e}}
         for e in entries]}), flush=True)

@@ -664,3 +664,89 @@ def test_ntt_passes(host_bin, d, tile_lg, layout):
     got = plan.kernel("quotient", *evs, launcher=launcher)
     assert torch.equal(got, tntt.quotient(plan, *evs))
     assert launcher.count == 3 * 2 * n_pass + 1 + n_pass
+
+
+def _fr_random(rng, shape, zeros=()):
+    """Canonical Fr words of ``shape`` (8 leading), flat entries ``zeros``
+    planted as 0."""
+    n = int(np.prod(shape[1:]))
+    vals = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(n)]
+    for k in zeros:
+        vals[k] = 0
+    return TL.FR.array(vals, "cpu").reshape(shape)
+
+
+def test_witness_steps_host(host_bin):
+    """W1's per-thread step (witness_kernel.cu: wit_step) on every step and
+    proof of a variable-base job, two fixed-base jobs (32 and 252 bits, the
+    last window with 2 and 3 real bits) and a fold, against steps_plain,
+    word for word: random elements with zeros planted, bits with an
+    all-zero and an all-one lane, digits 0-7."""
+    from zerochain_tpu_torch.prover import cuda_witness as cw
+
+    rng = np.random.RandomState(89)
+    C, B, nb, K = 2, 3, 6, 4
+    var_pts = tuple(_fr_random(rng, (8, nb, C, B), zeros=(1, 7)) for _ in range(4))
+    bits = torch.from_numpy(rng.randint(0, 2, (nb, C, B)).astype(np.uint8))
+    bits[:, 0, 0] = 0
+    bits[:, 1, 2] = 1
+    fix_pts = (_fr_random(rng, (8, 84, C, B)), _fr_random(rng, (8, 84, C, B)),
+               _fr_random(rng, (8, 83, C, B), zeros=(5,)), _fr_random(rng, (8, 83, C, B)))
+    digits = torch.from_numpy(rng.randint(0, 8, (84, C, B)).astype(np.uint8))
+    fold_pts = tuple(_fr_random(rng, (8, K, C, B)) for _ in range(4))
+    jobs, off = [], 0
+    for kind, pts, data, index, n_bits in ((cw.VAR, var_pts, bits, 1, 0),
+                                           (cw.FIXED, fix_pts, digits, 0, 32),
+                                           (cw.FIXED, fix_pts, digits, 1, 252),
+                                           (cw.FOLD, fold_pts, None, 1, 0)):
+        jobs.append(cw.StepJob(kind, off, pts, index, data, n_bits))
+        off += jobs[-1].n_rows
+    want = torch.zeros((8, off, B), dtype=torch.int32)
+    cw.steps_plain(jobs, want)
+    text = f"wst {len(jobs)} {off} {B}\n"
+    for j in jobs:
+        text += (f"{j.kind} {j.aux_off} {j.n_steps} {j.n_bits} {j.points[0].shape[1]} "
+                 f"{j.points[2].shape[1]} {C} {j.index}\n")
+        text += "\n".join(_hex(t) for t in j.points) + "\n"
+        if j.data is not None:
+            text += " ".join(map(str, j.data.reshape(-1).tolist())) + "\n"
+    (got,) = _run(host_bin, text)
+    assert torch.equal(_words_of(got, want.shape), want)
+
+
+def test_witness_program_host(host_bin):
+    """W2's program interpreter (witness_kernel.cu: wg_run, one lane a proof)
+    against gadgets_plain, word for word: an add gadget and two
+    not-small-order gadgets (one on the small-order (0, -1), so a batched
+    inversion holds a zero) of points from the program's input rows, and
+    five inversions of one depth with zeros planted (one proof all zeros)."""
+    from zerochain_tpu_torch.prover import cuda_witness as cw
+    from zerochain_tpu_torch.prover import witness as twit
+
+    rng = np.random.RandomState(97)
+    B = 3
+    pts = _jubjub_points(rng, 2 * B)
+    small = [(0, R - 1), pts[0], (0, R - 1)]
+    cols = [pts[:B], pts[B:], small]
+    ins = torch.stack([c for pt in cols for c in twit.affine_mont_host(pt, "cpu")], dim=1)
+    inv_in = _fr_random(rng, (8, 5, B), zeros=(1, 5, 6, 7, 8, 9))
+    ins = torch.cat([ins, inv_in], dim=1)                  # (8, 6 + 5, B)
+    prog = cw.Program()
+    p, q, s = ((prog.load(2 * k, cw.INS), prog.load(2 * k + 1, cw.INS)) for k in range(3))
+    vals = (twit.add_gadget(prog, *p, *q) + twit.not_small_order_gadget(prog, *p)
+            + twit.not_small_order_gadget(prog, *s)
+            + [prog.inv(prog.load(6 + k, cw.INS)) for k in range(5)])
+    for row, v in enumerate(vals):
+        prog.store(v, row)
+    c = prog.compile()
+    assert c.counts["inv"] == 2                            # one Fermat power a depth
+    want = torch.zeros((8, len(vals), B), dtype=torch.int32)
+    cw.gadgets_plain(c, want, ins)
+    text = (f"wgp {len(c.ops)} {len(c.stage_end)} {c.n_slots} {len(vals)} {ins.shape[1]} {B}\n"
+            + " ".join(map(str, c.ops.reshape(-1).tolist())) + "\n"
+            + " ".join(map(str, c.stage_end.tolist())) + "\n"
+            + _hex(want.zero_()) + "\n" + _hex(ins) + "\n")
+    cw.gadgets_plain(c, want, ins)
+    (got,) = _run(host_bin, text)
+    assert torch.equal(_words_of(got, want.shape), want)
+    assert torch.equal(want[:, -5:], cuda_ff.inv_plain(TL.FR, inv_in))

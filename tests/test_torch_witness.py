@@ -95,9 +95,9 @@ def test_emitter_helpers():
     assert TL.FR.to_ints(twit.u32_to_mont(v), mont=True) == v.tolist()
     bits = torch.tensor([[0, 1], [1, 1]])
     assert TL.FR.to_ints(twit.bit_mont(bits), mont=True) == [0, 1, 1, 1]
-    em = twit.Emitter()
+    em = twit.Emitter(torch.zeros((8, 63, 4), dtype=torch.int32))
     le = twit.emit_u32_range(em, v)
-    assert le.shape == (32, 4) and em.concat().shape == (8, 63, 4)
+    assert le.shape == (32, 4) and em.off == 63
     assert [int(sum(int(le[i, b]) << i for i in range(32))) for b in range(4)] == v.tolist()
 
 

@@ -2,8 +2,9 @@
 // headers, the per-thread steps of totals_kernel.cu, column_scan_kernel.cu,
 // split_tail_kernel.cu and the bucket sums of hs_kernel.cu, the one-lane chain programs of
 // group_program.cuh, the Fermat inverse of ff_kernels.cu, the per-lane
-// Jubjub chains of jubjub_kernels.cu and the NTT passes and pointwise step of
-// ntt_kernel.cu compile as plain C++,
+// Jubjub chains of jubjub_kernels.cu, the NTT passes and pointwise step of
+// ntt_kernel.cu and the witness gadgets' per-thread step and program
+// interpreter of witness_kernel.cu compile as plain C++,
 // so their arithmetic can be held against the plain PyTorch versions where
 // there is no CUDA toolkit.  Driven by tests/test_torch_csrc_host.py.
 //
@@ -28,6 +29,13 @@
 //                                    -> one NTT pass (pre 0/1; post 0, 1 constant,
 //                                       2 vector), the words it writes, one line
 //   ntp count bc  a [b c] z          -> (a b - c) z, or a z where bc = 0, one line
+//   wst n_jobs n_aux B, per job: kind aux_off n_steps n_bits n0 n2 chains index,
+//       its point arrays (8, n0 | n0 | n2 | n2, chains, B) and, but for a fold,
+//       its bytes (n0, chains, B) as ints
+//                                    -> W1's steps of every job, then aux, one line
+//   wgp n_ops n_stages n_slots n_aux n_ins B  ops stage_end aux ins
+//                                    -> W2's program for every proof, one lane
+//                                       a proof, then aux, one line
 // Threads are stepped through in order, a barrier being the end of a loop
 // over the threads.  k3: T threads a row (T = 0: as many as the kernel gives
 // the row for its non-zero count, R non-zero digits a thread at least),
@@ -48,6 +56,7 @@
 #include "ntt_kernel.cu"
 #include "split_tail_kernel.cu"
 #include "totals_kernel.cu"
+#include "witness_kernel.cu"
 
 template <int N> static void rd(uint32_t* a) { for (int i = 0; i < N; i++) if (scanf("%x", &a[i]) != 1) a[i] = 0; }
 template <int N> static void pr(const uint32_t* a) { for (int i = 0; i < N; i++) printf("%08x ", a[i]); printf("\n"); }
@@ -349,6 +358,52 @@ static void ntt_pointwise_host(long long count, int bc) {
   print_words(out);
 }
 
+static void wit_steps_host(int n_jobs, long long n_aux, long long B) {
+  std::vector<std::vector<uint32_t>> words;
+  std::vector<std::vector<uint8_t>> bytes;
+  words.reserve(4 * n_jobs);
+  bytes.reserve(n_jobs);
+  static WitStepArgs a;
+  std::vector<uint32_t> aux(8 * n_aux * B);
+  a.aux = aux.data();
+  a.n_aux = n_aux;
+  a.B = B;
+  a.n_jobs = n_jobs;
+  for (int i = 0; i < n_jobs; i++) {
+    WitJob& j = a.jobs[i];
+    long long n0, n2, chains, index;
+    if (scanf("%d %d %d %d %lld %lld %lld %lld", &j.kind, &j.aux_off, &j.n_steps,
+              &j.n_bits, &n0, &n2, &chains, &index) != 8) return;
+    j.step_stride = chains * B;
+    for (int k = 0; k < 4; k++) {
+      const long long n = k < 2 ? n0 : n2;
+      words.push_back(read_words(8 * n * chains * B));
+      j.p[k] = words.back().data() + index * B;
+      j.wstride[k] = n * chains * B;
+    }
+    bytes.emplace_back(j.kind == WS_FOLD ? 0 : n0 * chains * B);
+    for (auto& v : bytes.back()) { int x = 0; if (scanf("%d", &x) != 1) x = 0; v = (uint8_t)x; }
+    j.p[4] = bytes.back().data() + index * B;
+  }
+  for (int i = 0; i < n_jobs; i++)
+    for (long long s = 0; s < a.jobs[i].n_steps; s++)
+      for (long long b = 0; b < B; b++) wit_step(a, a.jobs[i], s, b);
+  print_words(aux);
+}
+
+static void wit_program_host(int n_ops, int n_stages, int n_slots, long long n_aux,
+                             long long n_ins, long long B) {
+  std::vector<int32_t> ops(4 * n_ops), ends(n_stages);
+  for (auto& v : ops) if (scanf("%d", &v) != 1) v = 0;
+  for (auto& v : ends) if (scanf("%d", &v) != 1) v = 0;
+  std::vector<uint32_t> aux = read_words(8 * n_aux * B), ins = read_words(8 * n_ins * B);
+  std::vector<uint32_t> slots(8 * n_slots);
+  const WitProg g{ops.data(), ends.data(), n_stages, n_slots, aux.data(), n_aux,
+                  ins.data(), n_ins, B};
+  for (long long b = 0; b < B; b++) wg_run(g, slots.data(), b, 0, 1);
+  print_words(aux);
+}
+
 int main() {
   char op[16];
   while (scanf("%15s", op) == 1) {
@@ -373,6 +428,15 @@ int main() {
       int lg, tile_lg, s0, k, pre, post; long long M;
       if (scanf("%d %lld %d %d %d %d %d", &lg, &M, &tile_lg, &s0, &k, &pre, &post) != 7) return 2;
       ntt_pass_host(lg, M, tile_lg, s0, k, pre, post);
+    } else if (!strcmp(op, "wst")) {
+      int n_jobs; long long n_aux, B;
+      if (scanf("%d %lld %lld", &n_jobs, &n_aux, &B) != 3 || n_jobs > WIT_MAX_JOBS) return 2;
+      wit_steps_host(n_jobs, n_aux, B);
+    } else if (!strcmp(op, "wgp")) {
+      int n_ops, n_stages, n_slots; long long n_aux, n_ins, B;
+      if (scanf("%d %d %d %lld %lld %lld", &n_ops, &n_stages, &n_slots, &n_aux, &n_ins, &B) != 6)
+        return 2;
+      wit_program_host(n_ops, n_stages, n_slots, n_aux, n_ins, B);
     } else if (!strcmp(op, "ntp")) {
       int bc; long long count;
       if (scanf("%lld %d", &count, &bc) != 2) return 2;

@@ -2,18 +2,26 @@
 
 The reference re-interprets the circuit per proof (bellman ConstraintSystem
 trait calls); here the circuit is fixed, so witness generation is straight
-tensor code: bit decompositions and window lookups are gathers, the
-scalar-mul chains run inversion-free in extended Edwards coordinates, each
-group of them in one chain-kernel launch (ec/cuda_jubjub.py), and affine
-gadget values are recovered with a handful of batched inversions, one
-``ff.inv`` launch each.  Aux values are emitted in
-EXACTLY the allocation order of models/confidential.py.
+tensor code, batched over a trailing proof axis B, into one preallocated
+``(8, n_aux, B)`` aux tensor:
 
-Everything is batched over a trailing proof axis B.
+- a :class:`Plan`, built once per circuit, gives every aux block its first
+  row in EXACTLY the allocation order of models/confidential.py, and says
+  who writes it: the host (bit decompositions, range checks, the witnessed
+  points' coordinates), the step kernel (the chains' per-step aux) or the
+  gadget program (the per-proof gadgets);
+- the scalar-mul chains run inversion-free in extended Edwards coordinates,
+  each group of them in one chain-kernel launch (ec/cuda_jubjub.py), and
+  are normalised with one ``ff.inv`` launch each;
+- the chains' per-step gadget aux is one ``cuda_witness.steps`` launch, the
+  per-proof gadgets (witnessed points, standalone adds, not-small-order
+  checks, with their inversions batched a depth at a time) one
+  ``cuda_witness.gadgets`` launch of the plan's program.
 """
 
 from __future__ import annotations
 
+import functools
 from functools import partial
 
 import numpy as np
@@ -21,20 +29,16 @@ import torch
 
 from .. import _device
 from ..ec import cuda_jubjub
-from ..ec import jubjub as ej
 from ..ff import limbs as L
 from ..mirror import jubjub as mjj
-from ..mirror.field import R
 from ..native.codec import scalars_to_bits_np
+from . import cuda_witness as cw
 
 FR = L.FR
 
 mul = partial(L.mont_mul, FR)
-fadd = partial(L.add, FR)
-fsub = partial(L.sub, FR)
 
 ONE_MONT = FR.r_mod_p
-D_MONT = mjj.EDWARDS_D * FR.r_mod_p % R
 
 _TABLES: dict = {}
 
@@ -72,38 +76,27 @@ def _bits_le(value, n):
     return (value[None] >> shifts) & 1
 
 
-# ---------------------------------------------------------------- gadget math
-def _affine_dbl_aux(x, y):
-    """T, A, C for a doubling gadget from the INPUT affine point."""
-    s = fadd(x, y)
-    t = mul(s, s)
-    a = mul(x, y)
-    c = mul(mul(FR.const(D_MONT, a), a), a)
-    return t, a, c
-
-
-def _affine_add_aux(x1, y1, x2, y2):
-    """U, A, B, C for an addition gadget from the two affine inputs."""
-    u = mul(fadd(x1, y1), fadd(x2, y2))
-    a = mul(y2, x1)
-    b = mul(x2, y1)
-    c = mul(mul(FR.const(D_MONT, a), a), b)
-    return u, a, b, c
-
-
 class Emitter:
-    """Collects aux blocks (8, k, B) in allocation order."""
+    """Writes aux blocks (8, k, B) into a preallocated aux tensor
+    (8, n_aux, B), one after the other from row ``off``; ``written`` (a
+    per-row count, optional) records the rows."""
 
-    def __init__(self):
-        self.blocks = []
+    def __init__(self, aux, off=0, written=None):
+        self.aux = aux
+        self.off = off
+        self.written = written
 
     def emit(self, arr):
         if arr.dim() == 2:
             arr = arr[:, None, :]
-        self.blocks.append(arr)
+        k = arr.shape[1]
+        self.aux[:, self.off: self.off + k] = arr
+        if self.written is not None:
+            self.written[self.off: self.off + k] += 1
+        self.off += k
 
-    def concat(self):
-        return torch.cat(self.blocks, dim=1)
+
+U32_ROWS = 63  # emit_u32_range: num, 31 run bits, 30 ANDs, bit 31
 
 
 def emit_u32_range(em: Emitter, value):
@@ -124,6 +117,7 @@ def emit_field_bits(em: Emitter, bits):
     em.emit(bit_mont(bits))
 
 
+# ---------------------------------------------------------------- chains
 def fixed_base_digits(bits, n_windows=84):
     """(n, B) bits -> (n_windows, B) 3-bit digits (zero-padded)."""
     n, B = bits.shape
@@ -174,54 +168,6 @@ def _normalize_stack(xyz):
     return mul(X, zinv), mul(Y, zinv)
 
 
-def emit_fixed_base(em: Emitter, chains, chain_idx: int, n_bits: int):
-    """Emit lookup + addition aux for one fixed-base chain; returns the
-    result affine (x, y)."""
-    nw = -(-n_bits // 3)
-    lx = chains["lookup_x"][:, :, chain_idx]  # (8, 84, B)
-    ly = chains["lookup_y"][:, :, chain_idx]
-    digits = chains["digits"][:, chain_idx]  # (84, B)
-    rx = chains["res_x"][:, :, chain_idx]  # (8, 83, B)
-    ry = chains["res_y"][:, :, chain_idx]
-
-    # precomp bit values per window: bit1 & bit2 of the digit
-    b1 = (digits >> 1) & 1
-    b2 = (digits >> 2) & 1
-    precomp = bit_mont(b1 & b2)  # (8, 84, B)
-
-    full_windows = n_bits // 3  # windows with 3 real bits
-    # window 0: x, y, precomp
-    em.emit(torch.stack([lx[:, 0], ly[:, 0], precomp[:, 0]], dim=1))
-
-    # windows 1..nw-1: lookup(3) + addition(6)
-    # addition w inputs: result affine of w-1 (res for w>=2, lookup0 for w=1)
-    prev_x = torch.cat([lx[:, 0:1], rx[:, : nw - 2]], dim=1)
-    prev_y = torch.cat([ly[:, 0:1], ry[:, : nw - 2]], dim=1)
-    cur_lx = lx[:, 1:nw]
-    cur_ly = ly[:, 1:nw]
-    u, a, b, c = _affine_add_aux(prev_x, prev_y, cur_lx, cur_ly)
-    x3 = rx[:, : nw - 1]
-    y3 = ry[:, : nw - 1]
-
-    def win_block(w):
-        parts = [cur_lx[:, w], cur_ly[:, w]]
-        if w + 1 < full_windows:  # window w+1 has a real precomp bit
-            parts.append(precomp[:, w + 1])
-        parts += [u[:, w], a[:, w], b[:, w], c[:, w], x3[:, w], y3[:, w]]
-        return torch.stack(parts, dim=1)
-
-    if full_windows >= nw:  # all windows full (252-bit scalars)
-        block = torch.stack(
-            [cur_lx, cur_ly, precomp[:, 1:nw], u, a, b, c, x3, y3], dim=2
-        )  # (8, nw-1, 9, B)
-        em.emit(block.reshape(FR.n, (nw - 1) * 9, block.shape[-1]))
-    else:
-        for w in range(nw - 1):
-            em.emit(win_block(w))
-
-    return rx[:, nw - 2], ry[:, nw - 2]
-
-
 def compute_var_mul_chains(bases, bits):
     """bases: affine (x, y) each (8, n_chains, B); bits (252, n_chains, B).
 
@@ -238,87 +184,341 @@ def compute_var_mul_chains(bases, bits):
     }
 
 
-def emit_var_mul(em: Emitter, chains, bits, chain_idx: int):
-    """Emit doubling/selection/addition aux for one variable-base mul.
-
-    bits: (252, B) for this chain.  Returns result affine (x, y)."""
-    cx = chains["cur_x"][:, :, chain_idx]  # (8, 252, B)
-    cy = chains["cur_y"][:, :, chain_idx]
-    rx = chains["res_x"][:, :, chain_idx]
-    ry = chains["res_y"][:, :, chain_idx]
-    nb = bits.shape[0]
-
-    one = L.ones_mont(FR, cx.shape[1:], cx.device)
-    on = bits[None].to(torch.bool)
-    selx = torch.where(on, cx, torch.zeros_like(cx))
-    sely = torch.where(on, cy, one)
-
-    # selection 0 aux
-    em.emit(torch.stack([selx[:, 0], sely[:, 0]], dim=1))
-
-    # steps 1..251: doubling(T,A,C,x3,y3), selection(x',y'), addition(6)
-    t, a, c = _affine_dbl_aux(cx[:, : nb - 1], cy[:, : nb - 1])
-    dx3 = cx[:, 1:]
-    dy3 = cy[:, 1:]
-    u, aa, bb, cc = _affine_add_aux(
-        rx[:, : nb - 1], ry[:, : nb - 1], selx[:, 1:], sely[:, 1:]
-    )
-    block = torch.stack(
-        [
-            t, a, c, dx3, dy3,
-            selx[:, 1:], sely[:, 1:],
-            u, aa, bb, cc, rx[:, 1:], ry[:, 1:],
-        ],
-        dim=2,
-    )  # (8, 251, 13, B)
-    em.emit(block.reshape(FR.n, (nb - 1) * 13, block.shape[-1]))
-    return rx[:, nb - 1], ry[:, nb - 1]
+def fixed_sources(fb):
+    """The step jobs' tensors of compute_fixed_base_chains' result."""
+    return ((fb["lookup_x"], fb["lookup_y"], fb["res_x"], fb["res_y"]),
+            fb["digits"].to(torch.uint8))
 
 
-def emit_witness_point(em: Emitter, x, y):
-    """EdwardsPoint::witness aux: x, y, x^2, y^2, x^2y^2."""
-    x2 = mul(x, x)
-    y2 = mul(y, y)
-    x2y2 = mul(x2, y2)
-    em.emit(torch.stack([x, y, x2, y2, x2y2], dim=1))
-    return x, y
+def var_sources(vm, bits):
+    """The step jobs' tensors of compute_var_mul_chains' result and its
+    bits (252, C, B)."""
+    return ((vm["cur_x"], vm["cur_y"], vm["res_x"], vm["res_y"]),
+            (bits != 0).to(torch.uint8).contiguous())
 
 
-def emit_add_gadget(em: Emitter, x1, y1, x2, y2):
-    """Standalone EdwardsPoint::add: U, A, B, C, x3, y3 (affine math)."""
-    u, a, b, c = _affine_add_aux(x1, y1, x2, y2)
-    # x3 = (A+B)/(1+C), y3 = (U-A-B)/(1-C): done via extended add + normalize
-    ext = ej.add(ej.ext_from_affine(x1, y1), ej.ext_from_affine(x2, y2))
-    x3, y3 = ej.normalize(ext)
-    em.emit(torch.stack([u, a, b, c, x3, y3], dim=1))
-    return x3, y3
+# ---------------------------------------------------------------- gadgets
+# Each gadget is a few operations of a cuda_witness.Program on a proof's
+# values (program value ids); a point is a pair (x, y).
+
+def witness_point_aux(prog, x, y):
+    """EdwardsPoint::witness aux after x, y: x^2, y^2, x^2 y^2."""
+    x2 = prog.mul(x, x)
+    y2 = prog.mul(y, y)
+    return [x2, y2, prog.mul(x2, y2)]
 
 
-def emit_not_small_order(em: Emitter, x, y):
-    """3 doublings (5 aux each) + ephemeral inverse of the final x."""
-    cur = ej.ext_from_affine(x, y)
-    outs = []
+def add_aux(prog, x1, y1, x2, y2):
+    """U, A, B, C of an addition gadget from the two affine inputs."""
+    a = prog.mul(y2, x1)
+    b = prog.mul(x2, y1)
+    return [prog.mul(prog.add(x1, y1), prog.add(x2, y2)), a, b,
+            prog.mul(prog.mul(prog.const(cw.D), a), b)]
+
+
+def dbl_aux(prog, x, y):
+    """T, A, C of a doubling gadget from the INPUT affine point."""
+    s = prog.add(x, y)
+    a = prog.mul(x, y)
+    return [prog.mul(s, s), a, prog.mul(prog.mul(prog.const(cw.D), a), a)]
+
+
+def _ext(prog, x, y):
+    """(x : y : 1 : xy)"""
+    return (x, y, prog.const(cw.ONE), prog.mul(x, y))
+
+
+def ext_add(prog, p, q):
+    """ec/jubjub.py's unified add (9M) -> X, Y, Z."""
+    X1, Y1, Z1, T1 = p
+    X2, Y2, Z2, T2 = q
+    a = prog.mul(prog.sub(Y1, X1), prog.sub(Y2, X2))
+    b = prog.mul(prog.add(Y1, X1), prog.add(Y2, X2))
+    c = prog.mul(prog.mul(T1, prog.const(cw.D2)), T2)
+    zz = prog.mul(Z1, Z2)
+    d = prog.add(zz, zz)
+    e, f = prog.sub(b, a), prog.sub(d, c)
+    g, h = prog.add(d, c), prog.add(b, a)
+    return prog.mul(e, f), prog.mul(g, h), prog.mul(f, g), prog.mul(e, h)
+
+
+def ext_double(prog, p):
+    """ec/jubjub.py's unified double (4M + 4S) -> X, Y, Z, T."""
+    X1, Y1, Z1, _ = p
+    a = prog.mul(X1, X1)
+    b = prog.mul(Y1, Y1)
+    zz = prog.mul(Z1, Z1)
+    c = prog.add(zz, zz)
+    xy = prog.add(X1, Y1)
+    e = prog.sub(prog.sub(prog.mul(xy, xy), a), b)
+    g = prog.sub(b, a)
+    f = prog.sub(g, c)
+    h = prog.sub(prog.const(cw.ZERO), prog.add(a, b))
+    return prog.mul(e, f), prog.mul(g, h), prog.mul(f, g), prog.mul(e, h)
+
+
+def add_gadget(prog, x1, y1, x2, y2):
+    """Standalone EdwardsPoint::add aux: U, A, B, C, x3, y3 (x3, y3 by the
+    extended add and a normalisation)."""
+    X, Y, Z, _ = ext_add(prog, _ext(prog, x1, y1), _ext(prog, x2, y2))
+    zinv = prog.inv(Z)
+    return add_aux(prog, x1, y1, x2, y2) + [prog.mul(X, zinv), prog.mul(Y, zinv)]
+
+
+def not_small_order_gadget(prog, x, y):
+    """3 doublings (T, A, C, x3, y3 each) + the ephemeral inverse of the
+    final x: 16 values."""
+    cur, outs = _ext(prog, x, y), []
     for _ in range(3):
-        cur = ej.double(cur)
-        outs.append(cur)
-    ax, ay = _normalize_stack(cuda_jubjub.stack_xyz(outs))  # (8, 3, B)
+        cur = ext_double(prog, cur)
+        zinv = prog.inv(cur[2])
+        outs.append((prog.mul(cur[0], zinv), prog.mul(cur[1], zinv)))
+    vals = []
+    for (ix, iy), (ox, oy) in zip([(x, y)] + outs[:2], outs):
+        vals += dbl_aux(prog, ix, iy) + [ox, oy]
+    return vals + [prog.inv(outs[2][0])]
 
-    in_x = torch.cat([x[:, None], ax[:, :2]], dim=1)
-    in_y = torch.cat([y[:, None], ay[:, :2]], dim=1)
-    t, a, c = _affine_dbl_aux(in_x, in_y)
-    block = torch.stack([t, a, c, ax, ay], dim=2)  # (8, 3, 5, B)
-    em.emit(block.reshape(FR.n, 15, block.shape[-1]))
 
-    # ephemeral inverse of the third doubling's x (num::assert_nonzero)
-    inv = L.batch_inv_mont(
-        FR, ax[:, 2].reshape(FR.n, -1), axis=1
-    ).reshape(x.shape)
-    em.emit(inv)
+# ---------------------------------------------------------------- the plan
+def var_rows(n_bits=252):
+    return 2 + 13 * (n_bits - 1)
+
+
+def fixed_rows(n_bits):
+    nw = -(-n_bits // 3)
+    return 3 + 9 * (nw - 1) - (n_bits % 3 != 0)
+
+
+class Ins(int):
+    """Point k of a program's input rows (8, n_ins, B): rows 2k and 2k + 1."""
+
+
+class Plan:
+    """The aux layout of one circuit: each block's first row (``at``) in
+    allocation order, and who fills each row: the host (``host_rows``,
+    written by the witness function through :meth:`rows`), a step job
+    (``jobs``: kind, first row, rows, source group, chain, bits;
+    ``cuda_witness.steps``) or a gadget program (``programs``: name ->
+    compiled ``cuda_witness.Program``; a program loads its inputs from rows
+    that are written before it runs, or from its input rows).  A point is
+    the pair of rows that hold its x and y, or an :class:`Ins`."""
+
+    def __init__(self):
+        self.n_aux = 0
+        self.at = {}
+        self.jobs = []
+        self._host = []      # (first row, rows, stride)
+        self._progs = {}     # name -> (Program, {row: value it stores})
+        self.programs = {}
+
+    def take(self, name, k, host=True):
+        if name in self.at:
+            raise ValueError(f"aux block {name!r} taken twice")
+        off = self.at[name] = self.n_aux
+        self.n_aux += k
+        if host:
+            self._host.append((off, k, 1))
+        return off
+
+    # ---- step jobs
+    def _step(self, kind, name, rows, group, index, n_bits=0):
+        off = self.take(name, rows, host=False)
+        self.jobs.append((kind, off, rows, group, index, n_bits))
+        return off + rows - 2, off + rows - 1  # the chain's last point
+
+    def fixed(self, name, index, n_bits, group="fb"):
+        return self._step(cw.FIXED, name, fixed_rows(n_bits), group, index, n_bits)
+
+    def var(self, name, index, n_bits=252, group="vm"):
+        return self._step(cw.VAR, name, var_rows(n_bits), group, index)
+
+    def fold(self, name, group, index, k):
+        return self._step(cw.FOLD, name, 8 * k, group, index)
+
+    # ---- gadgets
+    def _prog(self, name):
+        return self._progs.setdefault(name, (cw.Program(), {}))
+
+    def point(self, pt, prog="main"):
+        """A point's values in program prog: the values it stored at the
+        rows, else loads."""
+        p, stored = self._prog(prog)
+        if isinstance(pt, Ins):
+            return p.load(2 * pt, cw.INS), p.load(2 * pt + 1, cw.INS)
+        return tuple(stored[r] if r in stored else p.load(r) for r in pt)
+
+    def _store(self, prog, row, v):
+        p, stored = self._prog(prog)
+        p.store(v, row)
+        stored[row] = v
+
+    def _gadget(self, name, vals, prog):
+        off = self.take(name, len(vals), host=False)
+        for k, v in enumerate(vals):
+            self._store(prog, off + k, v)
+        return off
+
+    def witness_points(self, name, k, prog="main"):
+        """k EdwardsPoint::witness gadgets in one block of 5k rows: per point
+        x, y (host rows) and x^2, y^2, x^2 y^2; -> the points' rows."""
+        off = self.take(name, 5 * k, host=False)
+        self._host.append((off, 2 * k, 5))
+        p = self._prog(prog)[0]
+        pts = [(off + 5 * i, off + 5 * i + 1) for i in range(k)]
+        for i, pt in enumerate(pts):
+            for j, v in enumerate(witness_point_aux(p, *self.point(pt, prog))):
+                self._store(prog, off + 5 * i + 2 + j, v)
+        return pts
+
+    def witness_point(self, name, prog="main"):
+        return self.witness_points(name, 1, prog)[0]
+
+    def add(self, name, pt, qt, prog="main"):
+        off = self._gadget(name, add_gadget(self._prog(prog)[0], *self.point(pt, prog),
+                                            *self.point(qt, prog)), prog)
+        return off + 4, off + 5
+
+    def not_small_order(self, name, pt, prog="main"):
+        self._gadget(name, not_small_order_gadget(self._prog(prog)[0],
+                                                  *self.point(pt, prog)), prog)
+
+    # ---- done
+    def finish(self, public=()):
+        """Compile the programs and check that every row has one writer;
+        ``public``: the points of the public inputs after ONE."""
+        owner = np.zeros(self.n_aux, np.int32)
+        host = np.zeros(self.n_aux, np.int32)
+        for off, k, stride in self._host:
+            rows = (off + np.arange(k) // 2 * stride + np.arange(k) % 2
+                    if stride > 1 else np.arange(off, off + k))
+            host[rows] += 1
+        owner += host
+        for _, off, rows, *_ in self.jobs:
+            owner[off: off + rows] += 1
+        for name, (p, stored) in self._progs.items():
+            owner[list(stored)] += 1
+            self.programs[name] = p.compile()
+        if not (owner == 1).all():
+            raise ValueError(f"aux rows with {sorted(set(owner.tolist()))} writers")
+        self.host_rows = host
+        self.public = [r for pt in public for r in pt]
+        self._public_dev = {}
+        del self._progs
+        return self
+
+    def step_jobs(self, groups):
+        """The StepJobs, with groups: source group -> (points, data)."""
+        jobs = []
+        for kind, off, rows, g, index, n_bits in self.jobs:
+            points, data = groups[g]
+            jobs.append(cw.StepJob(kind, off, points, index,
+                                   None if kind == cw.FOLD else data, n_bits))
+            if jobs[-1].n_rows != rows:
+                raise ValueError(f"step job {g}[{index}]: {jobs[-1].n_rows} rows, "
+                                 f"the plan has {rows}")
+        return jobs
+
+    def rows(self, aux):
+        """The host rows' writer: rows(name) is an Emitter at the block's
+        first row, rows.points(name, x, y) writes a witness_points block's
+        x and y; rows.check() after the last write."""
+        return _HostRows(self, aux)
+
+    def public_rows(self, device):
+        key = str(device)
+        if key not in self._public_dev:
+            self._public_dev[key] = torch.tensor(self.public, device=device)
+        return self._public_dev[key]
+
+
+class _HostRows:
+    def __init__(self, plan, aux):
+        self.plan, self.aux = plan, aux
+        self.written = np.zeros(plan.n_aux, np.int32)
+
+    def __call__(self, name):
+        return Emitter(self.aux, self.plan.at[name], self.written)
+
+    def points(self, name, x, y):
+        """x, y: (8, k, B) or (8, B) for one point."""
+        off = self.plan.at[name]
+        if x.dim() == 2:
+            x, y = x[:, None], y[:, None]
+        k = x.shape[1]
+        self.aux[:, off: off + 5 * k: 5] = x
+        self.aux[:, off + 1: off + 5 * k: 5] = y
+        self.written[off: off + 5 * k: 5] += 1
+        self.written[off + 1: off + 5 * k: 5] += 1
+
+    def check(self):
+        if not np.array_equal(self.written, self.plan.host_rows):
+            bad = np.flatnonzero(self.written != self.plan.host_rows)
+            raise RuntimeError(f"host rows written wrongly, first at row {bad[0]}")
+
+
+def new_aux(plan, B, device):
+    return torch.empty((FR.n, plan.n_aux, B), dtype=torch.int32, device=device)
+
+
+def public_of(plan, aux):
+    """(8, 1 + len(plan.public), B): ONE, then the public points' rows."""
+    B = aux.shape[2]
+    return torch.cat([L.ones_mont(FR, (1, B), aux.device),
+                      aux.index_select(1, plan.public_rows(aux.device))], dim=1)
 
 
 # ======================================================================
 # full ConfidentialTransfer witness assembly
 # ======================================================================
+
+@functools.lru_cache(maxsize=None)
+def confidential_plan() -> Plan:
+    """models/confidential.py's allocation order."""
+    pl = Plan()
+    for name in ("amount", "remaining", "fee"):
+        pl.take(name, U32_ROWS)
+    pl.take("dec_key_bits", 252)
+    eks = pl.fixed("enc_key_sender", 0, 252)
+    amount_g = pl.fixed("amount_g", 1, 32)
+    fee_g = pl.fixed("fee_g", 2, 32)
+    pl.take("randomness_bits", 252)
+
+    val_rls = pl.var("val_rls", 0)
+    ekr = pl.witness_point("ekr")
+    pl.not_small_order("ekr.nso", ekr)
+    val_rlr = pl.var("val_rlr", 1)
+    c_left_sender = pl.add("c_left_sender", amount_g, val_rls)
+    c_left_recipient = pl.add("c_left_recipient", amount_g, val_rlr)
+    c_right = pl.fixed("c_right", 3, 252)
+    f_left_sender = pl.add("f_left_sender", fee_g, val_rls)
+
+    ebl = pl.witness_point("ebl")
+    ebr = pl.witness_point("ebr")
+    pl.not_small_order("ebl.nso", ebl)
+    pl.not_small_order("ebr.nso", ebr)
+
+    dksr = pl.var("dksr", 2)
+    bal_dksr = pl.add("bal_dksr", ebl, dksr)
+    pl.add("bi_left", bal_dksr, dksr)
+
+    dksp = pl.var("dksp", 3)
+    rem_bal_g = pl.fixed("rem_bal_g", 4, 32)
+    val_rem_bal = pl.add("val_rem_bal", c_left_sender, rem_bal_g)
+    val_rem_bal_balr = pl.add("val_rem_bal_balr", val_rem_bal, dksp)
+    pl.add("bi_right", f_left_sender, val_rem_bal_balr)
+
+    pgk = pl.witness_point("pgk")
+    pl.not_small_order("pgk.nso", pgk)
+    pl.take("alpha_bits", 252)
+    alpha_g = pl.fixed("alpha_g", 5, 252)
+    rvk = pl.add("rvk", pgk, alpha_g)
+    pl.not_small_order("rvk.nso", rvk)
+
+    gep = pl.witness_point("gep")
+    nonce = pl.var("nonce", 4)
+    return pl.finish([eks, ekr, c_left_sender, c_left_recipient, c_right,
+                      f_left_sender, ebl, ebr, rvk, gep, nonce])
+
 
 def confidential_witness(
     amount_u32,          # (B,) int64 < 2^32
@@ -336,15 +536,36 @@ def confidential_witness(
     """-> (aux (8, n_aux, B), public (8, 23, B)), both Montgomery words.
 
     Aux order matches models/confidential.py allocation order exactly."""
-    em = Emitter()
+    plan, aux, jobs = confidential_setup(
+        amount_u32, remaining_u32, fee_u32, dec_key_bits, randomness_bits,
+        alpha_bits, ekr, ebl, ebr, pgk, gep)
+    cw.steps(jobs, aux)
+    cw.gadgets(plan.programs["main"], aux)
+    return aux, public_of(plan, aux)
+
+
+def confidential_setup(amount_u32, remaining_u32, fee_u32, dec_key_bits,
+                       randomness_bits, alpha_bits, ekr, ebl, ebr, pgk, gep):
+    """The witness up to its gadget kernels: -> (plan, aux with the host
+    rows written, the step jobs over the normalised chains)."""
+    plan = confidential_plan()
     B = dec_key_bits.shape[1]
+    aux = new_aux(plan, B, dec_key_bits.device)
+    rows = plan.rows(aux)
 
-    amount_bits = emit_u32_range(em, amount_u32)
-    remaining_bits = emit_u32_range(em, remaining_u32)
-    fee_bits = emit_u32_range(em, fee_u32)
-    emit_field_bits(em, dec_key_bits)
+    amount_bits = emit_u32_range(rows("amount"), amount_u32)
+    remaining_bits = emit_u32_range(rows("remaining"), remaining_u32)
+    fee_bits = emit_u32_range(rows("fee"), fee_u32)
+    for name, bits in (("dec_key_bits", dec_key_bits),
+                       ("randomness_bits", randomness_bits),
+                       ("alpha_bits", alpha_bits)):
+        emit_field_bits(rows(name), bits)
+    for name, (x, y) in (("ekr", ekr), ("ebl", ebl), ("ebr", ebr), ("pgk", pgk),
+                         ("gep", gep)):
+        rows.points(name, x, y)
+    rows.check()
 
-    # ---- fixed-base group (all on NoteCommitmentRandomness) ----------
+    # ---- the chains (all on NoteCommitmentRandomness for the fixed base)
     fb = compute_fixed_base_chains(
         [
             dec_key_bits,                         # 0: enc_key_sender
@@ -355,18 +576,10 @@ def confidential_witness(
             alpha_bits,                           # 5: alpha_g
         ]
     )
-
-    eks = emit_fixed_base(em, fb, 0, 252)          # enc_key_sender
-    # (inputize enc_key_sender: no aux)
-    amount_g = emit_fixed_base(em, fb, 1, 32)
-    fee_g = emit_fixed_base(em, fb, 2, 32)
-    emit_field_bits(em, randomness_bits)
-
-    # ---- variable-base group (bases now known) -----------------------
-    # c_right result is needed as a var-mul base: compute from chain 3
-    nw252 = 84
-    c_right = (fb["res_x"][:, nw252 - 2, 3], fb["res_y"][:, nw252 - 2, 3])
-
+    # enc_key_sender and c_right are var-mul bases: chain 0's and 3's sums
+    last = 84 - 2
+    eks = (fb["res_x"][:, last, 0], fb["res_y"][:, last, 0])
+    c_right = (fb["res_x"][:, last, 3], fb["res_y"][:, last, 3])
     vm_bases = (
         torch.stack([eks[0], ekr[0], c_right[0], ebr[0], gep[0]], dim=1),
         torch.stack([eks[1], ekr[1], c_right[1], ebr[1], gep[1]], dim=1),
@@ -382,72 +595,8 @@ def confidential_witness(
         dim=1,
     )  # (252, 5, B)
     vm = compute_var_mul_chains(vm_bases, vm_bits)
-
-    val_rls = emit_var_mul(em, vm, vm_bits[:, 0], 0)
-
-    emit_witness_point(em, ekr[0], ekr[1])
-    emit_not_small_order(em, ekr[0], ekr[1])
-
-    val_rlr = emit_var_mul(em, vm, vm_bits[:, 1], 1)
-    # (inputize enc_key_recipient)
-
-    c_left_sender = emit_add_gadget(em, *amount_g, *val_rls)
-    c_left_recipient = emit_add_gadget(em, *amount_g, *val_rlr)
-    c_right_res = emit_fixed_base(em, fb, 3, 252)
-    f_left_sender = emit_add_gadget(em, *fee_g, *val_rls)
-    # (inputize x4)
-
-    emit_witness_point(em, ebl[0], ebl[1])
-    emit_witness_point(em, ebr[0], ebr[1])
-    emit_not_small_order(em, ebl[0], ebl[1])
-    emit_not_small_order(em, ebr[0], ebr[1])
-
-    dksr = emit_var_mul(em, vm, vm_bits[:, 2], 2)
-    bal_dksr = emit_add_gadget(em, ebl[0], ebl[1], *dksr)
-    emit_add_gadget(em, *bal_dksr, *dksr)  # bi_left
-
-    dksp = emit_var_mul(em, vm, vm_bits[:, 3], 3)
-    rem_bal_g = emit_fixed_base(em, fb, 4, 32)
-    val_rem_bal = emit_add_gadget(em, *c_left_sender, *rem_bal_g)
-    val_rem_bal_balr = emit_add_gadget(em, *val_rem_bal, *dksp)
-    emit_add_gadget(em, *f_left_sender, *val_rem_bal_balr)  # bi_right
-    # (eq points, inputize enc_balance_left/right: no aux)
-
-    # ---- rvk ----------------------------------------------------------
-    emit_witness_point(em, pgk[0], pgk[1])
-    emit_not_small_order(em, pgk[0], pgk[1])
-    emit_field_bits(em, alpha_bits)
-    alpha_g = emit_fixed_base(em, fb, 5, 252)
-    rvk = emit_add_gadget(em, pgk[0], pgk[1], *alpha_g)
-    emit_not_small_order(em, *rvk)
-    # (inputize rvk)
-
-    # ---- g_epoch / nonce ---------------------------------------------
-    emit_witness_point(em, gep[0], gep[1])
-    nonce = emit_var_mul(em, vm, vm_bits[:, 4], 4)
-    # (inputize g_epoch, nonce)
-
-    aux = em.concat()
-
-    one = L.ones_mont(FR, (B,), aux.device)
-    public = torch.stack(
-        [
-            one,
-            eks[0], eks[1],
-            ekr[0], ekr[1],
-            c_left_sender[0], c_left_sender[1],
-            c_left_recipient[0], c_left_recipient[1],
-            c_right_res[0], c_right_res[1],
-            f_left_sender[0], f_left_sender[1],
-            ebl[0], ebl[1],
-            ebr[0], ebr[1],
-            rvk[0], rvk[1],
-            gep[0], gep[1],
-            nonce[0], nonce[1],
-        ],
-        dim=1,
-    )
-    return aux, public
+    return plan, aux, plan.step_jobs({"fb": fixed_sources(fb),
+                                      "vm": var_sources(vm, vm_bits)})
 
 
 # ---------------------------------------------------------------- host API

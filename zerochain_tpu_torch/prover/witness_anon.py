@@ -2,7 +2,8 @@
 
 Same design as prover/witness.py (the ConfidentialTransfer witness): the
 circuit is fixed, so witness generation is straight tensor code batched over
-a trailing proof axis B.  The 12-member anonymity-set machinery of the
+a trailing proof axis B, into one preallocated aux tensor laid out by a
+:class:`~.witness.Plan`.  The 12-member anonymity-set machinery of the
 reference (core/proofs/src/circuit/anonimity_set.rs:32-483) carries the
 anonymity-set axis as a tensor dimension: selector masks, the one-hot
 Σ-folds and the 12 parallel ``enc_key_i * randomness`` chains.
@@ -16,8 +17,12 @@ the variable-base chains, then the two over their results): a fold is the
 running sum of its 12 selected points from the identity, which is the
 fixed-base window sum with the identity as window 0.
 
-Aux values are emitted in EXACTLY the allocation order of
-models/anonymous.py.
+The gadget aux is three programs and one step launch
+(prover/cuda_witness.py): program "lc" (the 12 adds C_l_i + C_i, whose sums
+one fold needs) before the first folds, program "crd" (cr_minus_d, a
+variable-base chain's base) before the variable-base chains, then the
+chains' and folds' per-step aux in one ``steps`` launch and program "main"
+(the witnessed points, the other adds and the not-small-order checks).
 """
 
 from __future__ import annotations
@@ -29,11 +34,12 @@ import torch
 
 from .. import _device
 from ..ec import cuda_jubjub
-from ..ec import jubjub as ej
 from ..ff import limbs as L
+from . import cuda_witness as cw
 from .witness import (
-    Emitter,
-    _affine_add_aux,
+    U32_ROWS,
+    Ins,
+    Plan,
     _bits_le,
     _normalize_stack,
     _u32_host,
@@ -41,14 +47,12 @@ from .witness import (
     bits_le_host,
     compute_fixed_base_chains,
     compute_var_mul_chains,
-    emit_add_gadget,
     emit_field_bits,
-    emit_fixed_base,
-    emit_not_small_order,
     emit_u32_range,
-    emit_var_mul,
-    emit_witness_point,
-    mul,
+    fixed_sources,
+    new_aux,
+    public_of,
+    var_sources,
 )
 
 FR = L.FR
@@ -59,25 +63,6 @@ def _ones_like(x):
     return L.ones_mont(FR, x.shape[1:], x.device)
 
 
-def _select(bools, px, py):
-    """bools (K, B) 0/1 ? (px, py) : the identity (0, 1), (8, K, B)."""
-    on = bools[None].to(torch.bool)
-    return (torch.where(on, px, torch.zeros_like(px)),
-            torch.where(on, py, _ones_like(py)))
-
-
-def _emit_witness_points_vec(em: Emitter, x, y):
-    """12 EdwardsPoint::witness gadgets: per point [x, y, x², y², x²y²].
-
-    x, y: (8, K, B)."""
-    x2 = mul(x, x)
-    y2 = mul(y, y)
-    x2y2 = mul(x2, y2)
-    block = torch.stack([x, y, x2, y2, x2y2], dim=2)  # (8, K, 5, B)
-    em.emit(block.reshape(FR.n, block.shape[1] * 5, block.shape[-1]))
-    return x, y
-
-
 # ---------------------------------------------------------------- folds
 def fold_windows(folds):
     """The window points of ``fixed_chain`` for independent folds.
@@ -86,7 +71,7 @@ def fold_windows(folds):
     ly): each fold's selected points (selx, sely), and lx, ly (8, K + 1,
     n_folds, B) with the identity (0, 1) as window 0 and the selections as
     windows 1..K."""
-    sels = [_select(b, x, y) for b, x, y in folds]
+    sels = [cw.select_point(b, x, y) for b, x, y in folds]
     sx0 = sels[0][0]
     zero = torch.zeros_like(sx0[:, :1])
     one = _ones_like(sx0[:, :1])
@@ -95,54 +80,30 @@ def fold_windows(folds):
     return sels, lx, ly
 
 
-def compute_folds(folds):
+def fold_group(folds):
     """Binary::edwards_add_fold values of independent folds, all in one
     ``fixed_chain`` launch and one batched inversion.
 
-    -> per fold (selx, sely, accx, accy), each (8, K, B): the selections
-    and the running affine sums after each member."""
+    -> (values, sources): per fold (selx, sely, accx, accy), each (8, K, B),
+    the selections and the running affine sums after each member; and the
+    folds' step-job sources (the selections and sums as (8, K, n_folds, B))."""
     sels, lx, ly = fold_windows(folds)
     accx, accy = _normalize_stack(cuda_jubjub.fixed_chain(lx, ly))  # (8, K, n, B)
-    return [(sx, sy, accx[:, :, i], accy[:, :, i])
-            for i, (sx, sy) in enumerate(sels)]
+    values = [(sx, sy, accx[:, :, i], accy[:, :, i])
+              for i, (sx, sy) in enumerate(sels)]
+    return values, ((lx[:, 1:], ly[:, 1:], accx, accy), None)
 
 
-def _emit_fold(em: Emitter, fold):
-    """Binary::edwards_add_fold aux: per member i the selection [x', y']
-    then the add [U, A, B, C, x3, y3] (anonimity_set.rs:157-192).
-
-    fold: (selx, sely, accx, accy) of ``compute_folds``.  Returns the final
-    affine accumulator (x, y), each (8, B)."""
-    selx, sely, accx, accy = fold
-    # the fold starts from the (0, 1) zero_p witness
-    prevx = torch.cat([torch.zeros_like(accx[:, :1]), accx[:, :-1]], dim=1)
-    prevy = torch.cat([_ones_like(accy[:, :1]), accy[:, :-1]], dim=1)
-    u, a, b, c = _affine_add_aux(prevx, prevy, selx, sely)
-    block = torch.stack([selx, sely, u, a, b, c, accx, accy], dim=2)
-    em.emit(block.reshape(FR.n, block.shape[1] * 8, block.shape[-1]))
-    return accx[:, -1], accy[:, -1]
+def compute_folds(folds):
+    """The per-fold values of :func:`fold_group`."""
+    return fold_group(folds)[0]
 
 
-def _add_vec(x1, y1, x2, y2):
-    """K independent EdwardsPoint::add gadgets: (U, A, B, C, x3, y3), each
-    (8, K, B); one batched add, one batched inversion."""
-    u, a, b, c = _affine_add_aux(x1, y1, x2, y2)
-    x3, y3 = ej.normalize(ej.add(ej.ext_from_affine(x1, y1),
-                                 ej.ext_from_affine(x2, y2)))
-    return u, a, b, c, x3, y3
-
-
-def _emit_add_vec(em: Emitter, vals):
-    """The aux of ``_add_vec``'s K adds, grouped per add."""
-    block = torch.stack(vals, dim=2)  # (8, K, 6, B)
-    em.emit(block.reshape(FR.n, block.shape[1] * 6, block.shape[-1]))
-
-
-def _emit_cond_eq(em: Emitter, bools, ax, ay, bx, by):
+def _emit_cond_eq(em, bools, ax, ay, bx, by):
     """Binary::conditionally_equals aux: per member the two selections
     [a_x', a_y', b_x', b_y'] (the equality constraints add no aux)."""
-    sax, say = _select(bools, ax, ay)
-    sbx, sby = _select(bools, bx, by)
+    sax, say = cw.select_point(bools, ax, ay)
+    sbx, sby = cw.select_point(bools, bx, by)
     block = torch.stack([sax, say, sbx, sby], dim=2)  # (8, K, 4, B)
     em.emit(block.reshape(FR.n, block.shape[1] * 4, block.shape[-1]))
 
@@ -151,22 +112,83 @@ def _emit_cond_eq(em: Emitter, bools, ax, ay, bx, by):
 # full AnonymousTransfer witness assembly
 # ======================================================================
 
-def anonymous_chains(amount_u32, remaining_u32, s_bits, t_bits,
+@functools.lru_cache(maxsize=None)
+def anonymous_plan() -> Plan:
+    """models/anonymous.py's allocation order."""
+    K = ANONIMITY_SIZE
+    pl = Plan()
+    pl.witness_point("zero_p")  # initialize acc.: the (0, 1) witness
+    pl.take("amount", U32_ROWS)
+    amount_g = pl.fixed("amount_g", 0, 32)
+    pl.take("remaining", U32_ROWS)
+    remaining_g = pl.fixed("remaining_g", 1, 32)
+    pl.take("dec_key_bits", 252)
+    pl.take("s_bits", K)  # Binary::new s (12 plain booleans)
+    pl.take("t_bits", K)
+    eks = pl.witness_points("enc_keys", K)
+    pl.fold("fold_s_ek", "pre", 0, K)  # add folded enc keys
+    pl.fixed("enc_key_sender", 2, 252)  # (equal enc_key_sender: no aux)
+    pl.take("randomness_bits", 252)
+    for i in range(K):  # enc keys multiplied by randomness
+        pl.var(f"emr.{i}", i)
+    cls = pl.witness_points("left_cts", K)
+    fold_t = pl.fold("fold_t_emr", "post", 0, K)
+    pl.add("expected_ct_left_t", fold_t, amount_g)
+    pl.fold("fold_t_cl", "pre", 1, K)  # ct_left_t (equality: no aux)
+    pl.take("xor_bits", K)  # s_i xor t_i
+    pl.fold("fold_xor_emr", "post", 1, K)
+    pl.fold("fold_xor_cl", "pre", 2, K)
+    pl.take("nor_bits", K)  # s_i nor t_i
+    pl.take("cond_eq", 4 * K)
+    # (inputize enc key set + ciphertext left set: no aux)
+    lbs = pl.witness_points("left_bals", K)
+    for i in range(K):  # C_l_i + C_i, before the folds that read them
+        pl.add(f"lc_add.{i}", lbs[i], cls[i], prog="lc")
+    pl.fold("fold_s_lc", "pre", 3, K)  # lh_c
+    rbs = pl.witness_points("right_bals", K)
+    pl.fold("fold_s_rb", "pre", 4, K)  # right_fold
+    pl.take("randomness_bits.2", 252)  # second decomposition
+    right_ct = pl.fixed("right_ct", 3, 252)  # r * G
+    # cr_minus_d = right_fold + right_ct, from the program's input rows
+    pl.add("cr_minus_d", Ins(0), Ins(1), prog="crd")
+    crd_sk = pl.var("crd_sk", K)
+    pl.add("rh_c", remaining_g, crd_sk)  # (eq: no aux)
+    # rvk (utils.rs:71-124)
+    pgk = pl.witness_point("pgk")
+    pl.not_small_order("pgk.nso", pgk)
+    pl.take("alpha_bits", 252)
+    alpha_g = pl.fixed("alpha_g", 4, 252)
+    rvk = pl.add("rvk", pgk, alpha_g)
+    pl.not_small_order("rvk.nso", rvk)
+    # g_epoch / nonce (utils.rs:126-154)
+    gep = pl.witness_point("gep")
+    nonce = pl.var("nonce", K + 1)
+    # 105 public inputs (anonymous_transfer.rs:454-478) after ONE
+    return pl.finish(eks + cls + lbs + rbs + [right_ct, rvk, gep, nonce])
+
+
+def anonymous_chains(rows=None, *, amount_u32, remaining_u32, s_bits, t_bits,
                      dec_key_bits, randomness_bits, alpha_bits, enc_keys,
                      left_cts, left_bals, right_bals, gep, **_):
-    """The witness's group arithmetic ahead of its emission: the five
-    fixed-base chains, the 12 adds C_l_i + C_i, the folds of known points,
-    cr_minus_d, the 14 variable-base chains and the folds over their
-    results, in three ``fixed_chain`` launches and one ``var_chain`` launch.
-    Takes the dict of ``witness_inputs_host`` (pgk is not needed here).
+    """The witness's group arithmetic ahead of its per-step aux: the five
+    fixed-base chains, program "lc" (the 12 adds C_l_i + C_i into their aux
+    rows), the folds of known points, program "crd" (cr_minus_d), the 14
+    variable-base chains and the folds over their results, in three
+    ``fixed_chain`` launches and one ``var_chain`` launch.  Takes the dict
+    of ``witness_inputs_host`` (pgk is not needed here); ``rows``: the host
+    rows' writer of the witness's aux (a fresh aux if None).
 
-    -> dict: ``fb`` (compute_fixed_base_chains), ``right_ct``, ``lc_add``
-    (the adds' U, A, B, C, x3, y3), ``pre`` / ``post`` (the fold inputs of
-    the two fold launches, as ``compute_folds`` takes them) with their
-    values ``pre_values`` / ``post_values``, ``right_fold``,
+    -> dict: ``fb`` (compute_fixed_base_chains), ``right_ct``, ``pre`` /
+    ``post`` (the fold inputs of the two fold launches, as ``fold_group``
+    takes them) with their values ``pre_values`` / ``post_values`` and
+    step-job sources ``pre_sources`` / ``post_sources``, ``right_fold``,
     ``cr_minus_d``, ``vm_bases``, ``vm_bits``, ``vm``
     (compute_var_mul_chains), ``emr`` (r * enc_key_i, (8, 12, B) each)."""
+    plan = anonymous_plan()
     B = dec_key_bits.shape[1]
+    if rows is None:
+        rows = plan.rows(new_aux(plan, B, dec_key_bits.device))
+    aux = rows.aux
     ekx, eky = enc_keys
     clx, cly = left_cts
     xor_bits = torch.bitwise_xor(s_bits, t_bits)
@@ -184,18 +206,25 @@ def anonymous_chains(amount_u32, remaining_u32, s_bits, t_bits,
     nw252 = 84
     right_ct = (fb["res_x"][:, nw252 - 2, 3], fb["res_y"][:, nw252 - 2, 3])
 
-    lc_add = _add_vec(*left_bals, clx, cly)
+    rows.points("left_bals", *left_bals)
+    rows.points("left_cts", clx, cly)
+    cw.gadgets(plan.programs["lc"], aux)
+    lc = plan.at["lc_add.0"] + 4  # x3, y3 of each add, 6 rows apart
+    lc_x3 = aux[:, lc: lc + 6 * ANONIMITY_SIZE: 6]
+    lc_y3 = aux[:, lc + 1: lc + 6 * ANONIMITY_SIZE: 6]
     pre = [
         (s_bits, ekx, eky),               # expected enc_key_sender
         (t_bits, clx, cly),               # ct_left_t
         (xor_bits, clx, cly),             # ct_left_xor
-        (s_bits, lc_add[4], lc_add[5]),   # lh_c
+        (s_bits, lc_x3, lc_y3),           # lh_c
         (s_bits, *right_bals),            # right_fold
     ]
-    pre_values = compute_folds(pre)
+    pre_values, pre_sources = fold_group(pre)
     right_fold = (pre_values[4][2][:, -1], pre_values[4][3][:, -1])
-    cr_minus_d = ej.normalize(ej.add(ej.ext_from_affine(*right_fold),
-                                     ej.ext_from_affine(*right_ct)))
+    cw.gadgets(plan.programs["crd"], aux,
+               torch.stack([*right_fold, *right_ct], dim=1))
+    crd = plan.at["cr_minus_d"] + 4
+    cr_minus_d = (aux[:, crd], aux[:, crd + 1])
 
     vm_bases = (
         torch.cat([ekx, cr_minus_d[0][:, None], gep[0][:, None]], dim=1),
@@ -214,10 +243,12 @@ def anonymous_chains(amount_u32, remaining_u32, s_bits, t_bits,
         (t_bits, *emr),                   # enc_keys_random_fold_t
         (xor_bits, *emr),                 # rand_fold_xor
     ]
-    return dict(fb=fb, right_ct=right_ct, lc_add=lc_add, pre=pre,
-                pre_values=pre_values, right_fold=right_fold,
+    post_values, post_sources = fold_group(post)
+    return dict(fb=fb, right_ct=right_ct, pre=pre, pre_values=pre_values,
+                pre_sources=pre_sources, right_fold=right_fold,
                 cr_minus_d=cr_minus_d, vm_bases=vm_bases, vm_bits=vm_bits,
-                vm=vm, emr=emr, post=post, post_values=compute_folds(post))
+                vm=vm, emr=emr, post=post, post_values=post_values,
+                post_sources=post_sources)
 
 
 def anonymous_witness(
@@ -240,113 +271,55 @@ def anonymous_witness(
     Aux order matches models/anonymous.py allocation order exactly.
     right_ct is computed from randomness_bits, as the circuit derives it
     (r * G, the right ElGamal component), so no input carries it."""
-    em = Emitter()
+    plan, aux, jobs = anonymous_setup(
+        amount_u32, remaining_u32, s_bits, t_bits, dec_key_bits,
+        randomness_bits, alpha_bits, enc_keys, left_cts, left_bals,
+        right_bals, pgk, gep)
+    cw.steps(jobs, aux)
+    cw.gadgets(plan.programs["main"], aux)
+    return aux, public_of(plan, aux)
+
+
+def anonymous_setup(amount_u32, remaining_u32, s_bits, t_bits, dec_key_bits,
+                    randomness_bits, alpha_bits, enc_keys, left_cts, left_bals,
+                    right_bals, pgk, gep):
+    """The witness up to its last gadget kernels (programs "lc" and "crd"
+    have run): -> (plan, aux with the host rows written, the step jobs over
+    the normalised chains and folds)."""
+    plan = anonymous_plan()
     B = dec_key_bits.shape[1]
     dev = dec_key_bits.device
-
-    ekx, eky = enc_keys
-    clx, cly = left_cts
-    lbx, lby = left_bals
-    rbx, rby = right_bals
+    aux = new_aux(plan, B, dev)
+    rows = plan.rows(aux)
     xor_bits = torch.bitwise_xor(s_bits, t_bits)
     nor_bits = (1 - s_bits) * (1 - t_bits)
 
-    c = anonymous_chains(amount_u32, remaining_u32, s_bits, t_bits,
-                         dec_key_bits, randomness_bits, alpha_bits, enc_keys,
-                         left_cts, left_bals, right_bals, gep)
-    fb, vm, vm_bits = c["fb"], c["vm"], c["vm_bits"]
-    right_ct, right_fold = c["right_ct"], c["right_fold"]
+    c = anonymous_chains(rows, amount_u32=amount_u32, remaining_u32=remaining_u32,
+                         s_bits=s_bits, t_bits=t_bits, dec_key_bits=dec_key_bits,
+                         randomness_bits=randomness_bits, alpha_bits=alpha_bits,
+                         enc_keys=enc_keys, left_cts=left_cts, left_bals=left_bals,
+                         right_bals=right_bals, gep=gep)
     emrx, emry = c["emr"]
-    fold_s_ek, fold_t_cl, fold_xor_cl, fold_s_lc, fold_s_rb = c["pre_values"]
-    fold_t_emr, fold_xor_emr = c["post_values"]
 
-    # ================== emission (circuit allocation order) ============
-    # initialize acc.: zero_p witness (0, 1)
-    zero_x = torch.zeros((FR.n, B), dtype=torch.int32, device=dev)
-    emit_witness_point(em, zero_x, L.ones_mont(FR, (B,), dev))
-
-    emit_u32_range(em, amount_u32)
-    amount_g = emit_fixed_base(em, fb, 0, 32)
-    emit_u32_range(em, remaining_u32)
-    remaining_g = emit_fixed_base(em, fb, 1, 32)
-
-    emit_field_bits(em, dec_key_bits)
-    emit_field_bits(em, s_bits)  # Binary::new s (12 plain booleans)
-    emit_field_bits(em, t_bits)  # Binary::new t
-
-    _emit_witness_points_vec(em, ekx, eky)  # push enckeys
-    _emit_fold(em, fold_s_ek)  # add folded enc keys
-    emit_fixed_base(em, fb, 2, 252)  # compute enc_key_sender
-    # (equal enc_key_sender: constraints only)
-
-    # enc keys multiplied by randomness: bits then 12 var-mul chains
-    emit_field_bits(em, randomness_bits)
-    for i in range(ANONIMITY_SIZE):
-        emit_var_mul(em, vm, vm_bits[:, i], i)
-
-    _emit_witness_points_vec(em, clx, cly)  # ciphertext_left_set
-
-    fold_t = _emit_fold(em, fold_t_emr)
-    emit_add_gadget(em, *fold_t, *amount_g)  # expected ct left t
-    _emit_fold(em, fold_t_cl)  # ct_left_t (equality: no aux)
-
-    emit_field_bits(em, xor_bits)  # s_i xor t_i (12 xor aux)
-    _emit_fold(em, fold_xor_emr)
-    _emit_fold(em, fold_xor_cl)
-
-    emit_field_bits(em, nor_bits)  # s_i nor t_i (12 nor aux)
-    _emit_cond_eq(em, nor_bits, clx, cly, emrx, emry)
-
-    # (inputize enc key set + ciphertext left set: no aux)
-
-    _emit_witness_points_vec(em, lbx, lby)  # left balance witness
-    _emit_add_vec(em, c["lc_add"])
-    _emit_fold(em, fold_s_lc)  # lh_c
-
-    _emit_witness_points_vec(em, rbx, rby)  # right balance witness
-    _emit_fold(em, fold_s_rb)  # right_fold
-
-    emit_field_bits(em, randomness_bits)  # second decomposition
-    emit_fixed_base(em, fb, 3, 252)  # right_ciphertext = r*G
-    emit_add_gadget(em, *right_fold, *right_ct)  # cr_minus_d
-    crd_sk = emit_var_mul(em, vm, vm_bits[:, ANONIMITY_SIZE], ANONIMITY_SIZE)
-    emit_add_gadget(em, *remaining_g, *crd_sk)  # rh_c (eq: no aux)
-
-    # rvk (utils.rs:71-124)
-    emit_witness_point(em, pgk[0], pgk[1])
-    emit_not_small_order(em, pgk[0], pgk[1])
-    emit_field_bits(em, alpha_bits)
-    alpha_g = emit_fixed_base(em, fb, 4, 252)
-    rvk = emit_add_gadget(em, pgk[0], pgk[1], *alpha_g)
-    emit_not_small_order(em, *rvk)
-
-    # g_epoch / nonce (utils.rs:126-154)
-    emit_witness_point(em, gep[0], gep[1])
-    nonce = emit_var_mul(em, vm, vm_bits[:, ANONIMITY_SIZE + 1],
-                         ANONIMITY_SIZE + 1)
-
-    aux = em.concat()
-
-    # ---- 105 public inputs (anonymous_transfer.rs:454-478) ------------
-    def interleave(x, y):  # (8, 12, B) pairs -> [x0, y0, x1, y1, ...]
-        return torch.stack([x, y], dim=2).reshape(FR.n, 2 * ANONIMITY_SIZE, B)
-
-    public = torch.cat(
-        [
-            L.ones_mont(FR, (1, B), dev),
-            interleave(ekx, eky),
-            interleave(clx, cly),
-            interleave(lbx, lby),
-            interleave(rbx, rby),
-            torch.stack(
-                [right_ct[0], right_ct[1], rvk[0], rvk[1],
-                 gep[0], gep[1], nonce[0], nonce[1]],
-                dim=1,
-            ),
-        ],
-        dim=1,
-    )
-    return aux, public
+    # ---- the host rows (the chains wrote left_bals' and left_cts' points)
+    rows.points("zero_p", torch.zeros((FR.n, B), dtype=torch.int32, device=dev),
+                L.ones_mont(FR, (B,), dev))
+    emit_u32_range(rows("amount"), amount_u32)
+    emit_u32_range(rows("remaining"), remaining_u32)
+    for name, bits in (("dec_key_bits", dec_key_bits), ("s_bits", s_bits),
+                       ("t_bits", t_bits), ("randomness_bits", randomness_bits),
+                       ("xor_bits", xor_bits), ("nor_bits", nor_bits),
+                       ("randomness_bits.2", randomness_bits),
+                       ("alpha_bits", alpha_bits)):
+        emit_field_bits(rows(name), bits)
+    for name, (x, y) in (("enc_keys", enc_keys), ("right_bals", right_bals),
+                         ("pgk", pgk), ("gep", gep)):
+        rows.points(name, x, y)
+    _emit_cond_eq(rows("cond_eq"), nor_bits, *left_cts, emrx, emry)
+    rows.check()
+    return plan, aux, plan.step_jobs({
+        "fb": fixed_sources(c["fb"]), "vm": var_sources(c["vm"], c["vm_bits"]),
+        "pre": c["pre_sources"], "post": c["post_sources"]})
 
 
 # ---------------------------------------------------------------- host API

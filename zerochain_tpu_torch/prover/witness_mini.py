@@ -1,37 +1,46 @@
 """Witness synthesis for the MiniCommit fixture circuit.
 
-Reuses the confidential compiler's gadget emitters; aux order matches
+Reuses the confidential witness's plan and emitters; aux order matches
 models/mini.py allocation order (proving + verifying fails on any aux
 misalignment)."""
 
 from __future__ import annotations
 
-import torch
+import functools
 
 from .. import _device
-from ..ff import limbs as L
+from . import cuda_witness as cw
 from .witness import (
+    U32_ROWS,
+    Plan,
     _bits_le,
     _u32_host,
-    Emitter,
     compute_fixed_base_chains,
-    emit_fixed_base,
     emit_u32_range,
+    fixed_sources,
+    new_aux,
+    public_of,
 )
 
-FR = L.FR
+
+@functools.lru_cache(maxsize=None)
+def mini_plan() -> Plan:
+    pl = Plan()
+    pl.take("amount", U32_ROWS)
+    g = pl.fixed("amount_g", 0, 32)
+    return pl.finish([g])
 
 
 def mini_witness(amount_u32):
     """(B,) int64 < 2^32 -> (aux (8, n_aux, B), public (8, 3, B)) mont."""
-    em = Emitter()
-    B = amount_u32.shape[0]
+    plan = mini_plan()
+    aux = new_aux(plan, amount_u32.shape[0], amount_u32.device)
+    rows = plan.rows(aux)
     fb = compute_fixed_base_chains([_bits_le(amount_u32, 32)])
-    emit_u32_range(em, amount_u32)
-    g = emit_fixed_base(em, fb, 0, 32)
-    one = L.ones_mont(FR, (B,), amount_u32.device)
-    public = torch.stack([one, g[0], g[1]], dim=1)
-    return em.concat(), public
+    emit_u32_range(rows("amount"), amount_u32)
+    rows.check()
+    cw.steps(plan.step_jobs({"fb": fixed_sources(fb)}), aux)
+    return aux, public_of(plan, aux)
 
 
 def witness_inputs_host(assignments: list[dict], device=None):

@@ -36,11 +36,14 @@ generates the ConfidentialTransfer CRS and prints JSON lines:
   times its path;
 - with --witness: the witness stage of that batch alone
   (``confidential_witness`` on the card), one warm call then three timed
-  ones, each with its field-kernel (K1) launches by op and, where the
-  checkout has them, its Jubjub chain launches; and the field kernels'
-  time a launch at the witness stage's shapes, (8, 160), (8, 192) and
-  (8, 1) Fr elements: a back-to-back loop through the wrapper (eager_ms)
-  and inside a CUDA graph (ms);
+  ones, each with its field-kernel (K1) launches by op and by shape and,
+  where the checkout has them, its Jubjub chain and witness-kernel
+  launches; the same for ``anonymous_witness`` on ``bench_assignments(32)``;
+  the field kernels' time a launch at the witness stage's shapes, (8, 160),
+  (8, 192) and (8, 1) Fr elements: a back-to-back loop through the wrapper
+  (eager_ms) and inside a CUDA graph (ms); and the inverse's at the shapes
+  the witnesses invert, (8, 32), (8, 96), (8, 15936) and (8, 40320) (CUDA
+  events, bound by its Fermat power's multiply-adds);
 - with --quotient: the quotient stage of that batch split into the
   constraint matvec, the padding and ``ntt.quotient``, three times each
   (CUDA events), with the quotient's launches by kernel (K1 and, where the
@@ -141,22 +144,56 @@ def main() -> int:
             from zerochain_tpu_torch.ec import cuda_jubjub
         except ImportError:  # a checkout from before the chain kernels
             cuda_jubjub = None
-        inputs_host, witness_fn = prover._witness_fns()
-        first = witness_fn(**inputs_host(assignments, prover.device))
-        for _ in range(3):
-            cuda_ff.reset_launches()
-            if cuda_jubjub is not None:
-                cuda_jubjub.reset_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = witness_fn(**inputs_host(assignments, prover.device))
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            by_op = {k: v for k, v in cuda_ff.launches.items() if v}
-            emit(kernel="witness", seconds=secs, k1_launches=sum(by_op.values()),
-                 k1_by_op=by_op, jubjub_launches=(
-                     dict(cuda_jubjub.launches) if cuda_jubjub else None),
-                 same_witness=all(torch.equal(a, b) for a, b in zip(out, first)))
+        try:
+            from zerochain_tpu_torch.prover import cuda_witness
+        except ImportError:  # a checkout from before the witness kernels
+            cuda_witness = None
+        from zerochain_tpu_torch.prover import witness_anon as wa
+
+        shapes = {}  # (op, shape) -> K1 launches, counted at the wrapper
+
+        def by_shape(op, fn):
+            def f(spec, *a):
+                key = f"{op}.{spec.name} {tuple(a[0].shape)}"
+                shapes[key] = shapes.get(key, 0) + 1
+                return fn(spec, *a)
+            return f
+
+        wrapped = {op: getattr(cuda_ff, op) for op in ("mont_mul", "add", "sub", "inv")}
+        for op, fn in wrapped.items():
+            setattr(cuda_ff, op, by_shape(op, fn))
+        conf = (prover._witness_fns(), assignments)
+        anon = ((wa.witness_inputs_host, wa.anonymous_witness), wa.bench_assignments(32))
+        for name, ((inputs_host, witness_fn), asg) in (("witness", conf),
+                                                       ("anon_witness", anon)):
+            first = witness_fn(**inputs_host(asg, prover.device))
+            for _ in range(3):
+                shapes.clear()
+                for mod in (cuda_ff, cuda_jubjub, cuda_witness):
+                    if mod is not None:
+                        mod.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = witness_fn(**inputs_host(asg, prover.device))
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                by_op = {k: v for k, v in cuda_ff.launches.items() if v}
+                emit(kernel=name, seconds=secs, k1_launches=sum(by_op.values()),
+                     k1_by_op=by_op, k1_by_shape=dict(shapes), jubjub_launches=(
+                         dict(cuda_jubjub.launches) if cuda_jubjub else None),
+                     witness_launches=(
+                         dict(cuda_witness.launches) if cuda_witness else None),
+                     same_witness=all(torch.equal(a, b) for a, b in zip(out, first)))
+            del first, out
+        for op, fn in wrapped.items():
+            setattr(cuda_ff, op, fn)
+        for n in (32, 96, 15936, 40320):
+            a = chip_smoke.random_elements(L.FR, (n,), gen)
+            muls = chip_smoke.fermat_muls(L.FR)
+            bnd, by = chip_smoke.bound_ms(2 * 8 * 4 * n, muls * chip_smoke.FR_MUL_OPS * n)
+            emit(kernel="ff.inv.Fr", shape=[8, n],
+                 ms=chip_smoke.time_ms(lambda: cuda_ff.inv(L.FR, a), 5),
+                 bound_ms=bnd, bound_by=by)
         for n in (160, 192, 1):
             a, b = (chip_smoke.random_elements(L.FR, (n + 3,), gen)[:, 3:].contiguous()
                     for _ in range(2))
