@@ -125,12 +125,18 @@ Then, after the anonymous phases and also under --mini, the verifier's side:
            its copy with entry 2,049 tampered rejected
   reddsa_kernels  the var chain at the block's 12,288 lanes (its first 384
                   against var_chain_plain) and K1 at the tree's first level
-  pairing  the BLS12-381 pairing over the Fq12 tower: e(G1, G2) and
-           bilinearity against the mirror, a 3-pair Miller loop and a final
-           exponentiation, and e(A_i, B_i) of prove's proofs (32; under
-           --verify-only, generator multiples) in one batched call, each
-           against the mirror; seconds and K1 launches by op at batch 1 and 32
-  pairing_kernels  K1 (Fq mul, add, sub, inverse) at the pairing's shapes
+  pairing  the BLS12-381 pairing on its two kernels (pairing_kernel.cu: the
+           G2 preparation and Miller loop, the final exponentiation; staged
+           Fq programs, a warp a pairing): e(G1, G2) and bilinearity against
+           the mirror, a 3-pair Miller loop and a final exponentiation, and
+           e(A_i, B_i) of prove's proofs (32; under --verify-only, generator
+           multiples) in one batched call, each against the mirror; seconds
+           and launches at batch 1 and 32: a call must launch each pairing
+           kernel once and nothing else (no K1)
+  pairing_kernels  pairing.miller / pairing.final_exp at batch 1 (.b1) and 32
+                   against their plain versions, the tower chain of K1
+                   launches timed once at 32 (k1_loop_ms), and K1 (Fq mul, add,
+                   sub, inverse) at the pairing's former shapes (off the path)
 
 Last, except under --mini, --anon-only and --verify-only, the command line
 (python -m zerochain_tpu_torch) in a temporary directory:
@@ -169,8 +175,9 @@ NTT at (8, B, d),
 prove_hs for bucket_sums and the bucket fold, prove_split for split_lanes and
 split_tail, the backend phase's create_proof for the NTT at (8, d), the anon_
 runs for the entries at the anonymous shapes, the block's timed verification
-for the .reddsa entries and the batched pairing call for the .pairing entries;
-hs_add_select and column_scan are checked but on no path.
+for the .reddsa entries and the batched pairing calls at batch 1 and 32 for the
+pairing.* entries; hs_add_select, column_scan and K1's .pairing entries are
+checked but on no path.
 """
 
 from __future__ import annotations
@@ -1829,13 +1836,13 @@ def reset_counters():
     """Zero every kernel wrapper's launch count and the dist collectives'
     counts."""
     from zerochain_tpu_torch.dist import comm
-    from zerochain_tpu_torch.ec import cuda_ec, cuda_jubjub
+    from zerochain_tpu_torch.ec import cuda_ec, cuda_jubjub, cuda_pairing
     from zerochain_tpu_torch.ff import cuda_ff
     from zerochain_tpu_torch.msm import cuda_scan
     from zerochain_tpu_torch.ntt import ntt as tntt
     from zerochain_tpu_torch.prover import cuda_witness
 
-    for mod in (cuda_ff, cuda_ec, cuda_scan, cuda_jubjub, tntt, cuda_witness):
+    for mod in (cuda_ff, cuda_ec, cuda_scan, cuda_jubjub, tntt, cuda_witness, cuda_pairing):
         mod.reset_launches()
     comm.reset_stats()
 
@@ -2406,15 +2413,64 @@ def phase_reddsa(gen, counters, path_counts, profile):
     return entries
 
 
+PAIRING_LAUNCHES = {"miller": 1, "final_exp": 1}  # a pairing_host_batch call
+
+
+def pairing_entries(ps, qs, picks, tag, path):
+    """The two pairing kernels (csrc/pairing_kernel.cu) on the pairs (ps,
+    qs) of one batched call: pairing.miller (cuda_pairing.miller_set
+    ("pairing"): the G2 preparation and the Miller loop) on the points' rows,
+    pairing.final_exp on its output, each against its plain version
+    (execute_plain) on the pairs ``picks``, word for word.  Bounds: the rows
+    each reads and writes, or its Fq multiplies (the Fermat power as its
+    multiplies) and its adds, subtracts and moves, whichever is larger."""
+    from zerochain_tpu_torch.ec import cuda_pairing as CP
+    from zerochain_tpu_torch.ec import pairing as DP
+    from zerochain_tpu_torch.ff import limbs as L
+
+    (px, py), (qx, qy) = DP.g1_tensors(ps, "cuda"), DP.g2_tensors(qs, "cuda")
+    ins = DP._rows([px, py, qx[:, 0], qx[:, 1], qy[:, 0], qy[:, 1]], 1, (len(ps),))
+    f = CP.execute(CP.miller_set("pairing"), ins)
+    out = []
+    for name, pset, x in (("miller", CP.miller_set("pairing"), ins),
+                          ("final_exp", CP.final_exp_set(), f)):
+        got = CP.execute(pset, x)
+        few = x[..., picks].contiguous()
+        CP.execute_plain(pset, few)  # warm: the plain version caches its constants
+        want, plain_ms = timed(lambda: CP.execute_plain(pset, few))
+        err = max_abs_err([got[..., picks]], [want])
+        c = pset.counts
+        n = len(ps)
+        n_bytes = (pset.n_in + pset.n_out) * 48 * n
+        n_ops = ((c["mul"] + c["inv"] * fermat_muls(L.FQ)) * FQ_MUL_OPS
+                 + c["linear"] * 2 * 12) * n
+        bnd, by = bound_ms(n_bytes, n_ops)
+        out.append(dict(
+            name=f"pairing.{name}{tag}", route="cuda",
+            source="zerochain_tpu_torch/csrc/pairing_kernel.cu", replaces=TPU_FF,
+            counter=("pp", name), path=path, shape=[12, pset.n_in, n],
+            stages=c["stages"], mul_stages=c["mul_stages"], slots=c["slots"],
+            fq_muls=c["mul"], fermat_powers=c["inv"], equal=err == 0, max_abs_err=err,
+            ms=time_ms(lambda: CP.execute(pset, x), 3), plain_ms=plain_ms,
+            plain_lanes=len(picks), bound_ms=bnd, bound_by=by, library_ms=None))
+    return out
+
+
 def phase_pairing(proofs, gen, counters, path_counts, profile):
-    """The BLS12-381 pairing on the card (ec/pairing.py over ec/tower.py):
-    e(G1, G2) and bilinearity against the mirror (which the CPU tests pin to
-    RELIC), a 3-pair Miller loop and one final exponentiation, and e(A_i,
-    B_i) of the proofs (without proofs: PAIRING_BATCH pairs of generator
-    multiples) in one batched call, each against the mirror; seconds and
-    K1 launches by op of a call at batch 1 and at the proofs' batch (one
-    warm call, one timed with the counters zeroed around it).  -> kernel
-    entries (K1 at the pairing's shapes, counted in the batched call)."""
+    """The BLS12-381 pairing on the card (ec/pairing.py over the two program
+    sets of ec/cuda_pairing.py, csrc/pairing_kernel.cu): e(G1, G2) and
+    bilinearity against the mirror (which the CPU tests pin to RELIC), a
+    3-pair Miller loop (g2_prepare, then miller_loop over the three) and one
+    final exponentiation, and e(A_i, B_i) of the proofs (without proofs:
+    PAIRING_BATCH pairs of generator multiples) in one batched call, each
+    against the mirror; seconds and launches of a call at batch 1 and at the
+    proofs' batch (one warm call, one timed with the counters zeroed around
+    it): it fails unless a call launches PAIRING_LAUNCHES and no other
+    kernel (no K1).  Then the kernels at both batches against their plain
+    versions, and the tower chain of K1 launches (ec/pairing.py: *_tower)
+    timed once at the full batch (k1_loop_ms).  -> kernel entries (the two
+    pairing kernels at batch 1 and at the batch; K1 at the pairing's former
+    shapes, now off the path)."""
     from zerochain_tpu_torch.ec import pairing as DP
     from zerochain_tpu_torch.ec import tower as T
     from zerochain_tpu_torch.ff import limbs as L
@@ -2455,11 +2511,16 @@ def phase_pairing(proofs, gen, counters, path_counts, profile):
         secs = time.time() - t0
         counts = {k: dict(v) for k, v in counters.items()}
         k1 = {k: v for k, v in counts["ff"].items() if v}
+        others = {f"{g}.{k}": v for g, c in counts.items() if g not in ("ff", "pp")
+                  for k, v in c.items() if v}
         runs[n] = dict(seconds=secs, pairings_per_second=n / secs,
-                       k1_launches=sum(k1.values()), k1_by_op=k1,
-                       other_launches=sum(sum(c.values()) for g, c in counts.items()
-                                          if g != "ff"))
-    path_counts["pairing"] = counts
+                       pairing_launches=counts["pp"], k1_launches=sum(k1.values()),
+                       k1_by_op=k1, other_launches=sum(others.values()))
+        path_counts["pairing" if n == len(ps) else "pairing_b1"] = counts
+        if counts["pp"] != PAIRING_LAUNCHES or k1 or others:
+            raise SystemExit(f"pairing: a call at batch {n} launched {counts['pp']}, K1 "
+                             f"{k1}, others {others}: expected {PAIRING_LAUNCHES} and "
+                             "nothing else")
     t0 = time.time()
     want = [P.pairing(p, q) for p, q in zip(ps, qs)]
     mirror_s = time.time() - t0
@@ -2469,26 +2530,36 @@ def phase_pairing(proofs, gen, counters, path_counts, profile):
     emit("pairing", generator_equal=True, bilinear=True, miller_3_pairs_equal=True,
          batch=len(ps), batch_of=source, batch_equal=True,
          mirror_seconds=mirror_s, runs=runs)
-    if counts["ff"]["inv.Fq"] == 0 or runs[len(ps)]["other_launches"]:
-        raise SystemExit(f"pairing: launches {counts}: expected K1 Fq ops and one "
-                         "inversion, nothing else")
     if profile:
         profile_call(lambda: DP.pairing_host_batch(ps, qs), runs[len(ps)]["seconds"],
                      "pairing")
 
-    # K1 at the pairing's shapes at this batch: the Fq multiplies of one
-    # fq12_mul (3 Karatsuba x 6 x 3 products a pairing), an Fq12's adds,
-    # and the inverse of one fq2_inv
     n = len(ps)
-    entries = ff_entries(L.FQ, (54 * n,), gen, ops=("mont_mul",), tag=".pairing",
-                         path="pairing")
-    entries += ff_entries(L.FQ, (12 * n,), gen, ops=("add", "sub"), tag=".pairing",
-                          path="pairing")
-    entries.append(inv_entry(L.FQ, (max(n, 3),), gen, False, tag=".pairing"))
-    entries[-1]["path"] = "pairing"
-    emit("pairing_kernels", seconds=time.time() - t_phase,
-         kernels=[{k: e[k] for k in ("name", "shape", "equal", "ms", "plain_ms")}
-                  for e in entries])
+    entries = pairing_entries(ps[:1], qs[:1], [0], ".b1", "pairing_b1")
+    entries += pairing_entries(ps, qs, [0, n - 1], "", "pairing")
+    # the tower chain of K1 launches at the full batch, once each half
+    (px, py), (qx, qy) = DP.g1_tensors(ps, "cuda"), DP.g2_tensors(qs, "cuda")
+    reset_counters()
+    fm, miller_loop_ms = timed(lambda: DP.miller_loop_tower(
+        [((px, py), DP.g2_prepare_tower(qx, qy))]))
+    fe, final_loop_ms = timed(lambda: DP.final_exponentiation_tower(fm))
+    k1_loop = {k: v for k, v in counters["ff"].items() if v}
+    if T.fq12_to_ints(fe) != got:
+        raise SystemExit("pairing: the K1 tower chain differs from the kernels")
+    entries[-2]["k1_loop_ms"], entries[-1]["k1_loop_ms"] = miller_loop_ms, final_loop_ms
+    entries[-2]["k1_loop_launches"] = entries[-1]["k1_loop_launches"] = sum(k1_loop.values())
+    # K1 at the pairing's former shapes at this batch (off the path now): the
+    # Fq multiplies of one fq12_mul (3 Karatsuba x 6 x 3 products a pairing),
+    # an Fq12's adds, and the inverse of one fq2_inv
+    k1 = ff_entries(L.FQ, (54 * n,), gen, ops=("mont_mul",), tag=".pairing")
+    k1 += ff_entries(L.FQ, (12 * n,), gen, ops=("add", "sub"), tag=".pairing")
+    k1.append(inv_entry(L.FQ, (max(n, 3),), gen, True, tag=".pairing"))
+    for e in k1:
+        e["off_path"], e["path"] = True, "pairing"
+    entries += k1
+    emit("pairing_kernels", seconds=time.time() - t_phase, k1_loop_by_op=k1_loop,
+         kernels=[{k: e[k] for k in ("name", "shape", "equal", "ms", "plain_ms",
+                                     "k1_loop_ms") if k in e} for e in entries])
     return entries
 
 
@@ -2724,7 +2795,7 @@ def main() -> int:
         return 2
 
     from zerochain_tpu_torch import _build
-    from zerochain_tpu_torch.ec import cuda_ec, cuda_jubjub
+    from zerochain_tpu_torch.ec import cuda_ec, cuda_jubjub, cuda_pairing
     from zerochain_tpu_torch.ff import cuda_ff
     from zerochain_tpu_torch.msm import cuda_scan
     from zerochain_tpu_torch.ntt import ntt as tntt
@@ -2760,7 +2831,8 @@ def main() -> int:
     gen.manual_seed(0)
     counters = {"ff": cuda_ff.launches, "ec": cuda_ec.launches,
                 "scan": cuda_scan.launches, "jj": cuda_jubjub.launches,
-                "ntt": tntt.launches, "wit": cuda_witness.launches}
+                "ntt": tntt.launches, "wit": cuda_witness.launches,
+                "pp": cuda_pairing.launches}
     path_counts = {}
     entries = []
     proofs = None
@@ -2808,14 +2880,17 @@ def main() -> int:
     # passes: an NTT's pass launches a transform; quotient_launches,
     # quotient_k1_launches: the NTT and K1 launches of one quotient alone;
     # program, stages, slots, fermat_powers: a gadget program's name and
-    # size, its Fermat powers a proof; jobs: a step launch's emission blocks
+    # size, its Fermat powers a proof; jobs: a step launch's emission blocks;
+    # mul_stages, fq_muls: a pairing kernel's multiply stages and Fq
+    # multiplies a pairing; k1_loop_launches: the K1 launches of its tower
+    # chain (k1_loop_ms)
     extras = ("eager_ms", "one_lane_ms", "nonzero_digits", "row_nonzero_q",
               "n_madd", "n_add", "heaviest_bucket", "heaviest_at", "rows_checked",
               "path", "off_path", "serial_mul", "us_per_mul", "k1_loop_ms",
               "chunk", "heaviest_bucket_g1", "heaviest_bucket_g2",
               "plain_lanes", "window_c", "passes", "quotient_launches",
               "quotient_k1_launches", "program", "stages", "slots",
-              "fermat_powers", "jobs")
+              "fermat_powers", "jobs", "mul_stages", "fq_muls", "k1_loop_launches")
     print(json.dumps({"kernels": [
         {**{k: e[k] for k in keys}, **{k: e[k] for k in extras if k in e}}
         for e in entries]}), flush=True)

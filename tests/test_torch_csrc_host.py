@@ -750,3 +750,43 @@ def test_witness_program_host(host_bin):
     (got,) = _run(host_bin, text)
     assert torch.equal(_words_of(got, want.shape), want)
     assert torch.equal(want[:, -5:], cuda_ff.inv_plain(TL.FR, inv_in))
+
+
+@pytest.fixture(scope="module")
+def pairing_rows():
+    """Two pairings (a generator pair and a non-generator pair) through the
+    plain versions: the Miller set's input rows and output f, and the final
+    exponentiation's output."""
+    from zerochain_tpu_torch.ec import cuda_pairing as cp
+    from zerochain_tpu_torch.ec import pairing as tp
+
+    ps = [cv.G1_GEN, cv.g1_mul(cv.G1_GEN, 0x1234567)]
+    qs = [cv.G2_GEN, cv.g2_mul(cv.G2_GEN, 0x89ABCDE)]
+    (px, py), (qx, qy) = tp.g1_tensors(ps, "cpu"), tp.g2_tensors(qs, "cpu")
+    ins = torch.stack([px, py, qx[:, 0], qx[:, 1], qy[:, 0], qy[:, 1]], 1).contiguous()
+    f = cp.execute_plain(cp.miller_set("pairing"), ins)
+    return {"miller": (cp.miller_set("pairing"), ins, f),
+            "final_exp": (cp.final_exp_set(), f, cp.execute_plain(cp.final_exp_set(), f))}
+
+
+@pytest.mark.parametrize("lanes", [1, 32])
+@pytest.mark.parametrize("kind", ["miller", "final_exp"])
+def test_pairing_sets_host(host_bin, pairing_rows, kind, lanes):
+    """pairing_kernel.cu's stage body (pp_stage) walking the Miller set
+    (mode "pairing") and the final-exponentiation set for two pairings,
+    every stage stepped lane by lane, against execute_plain word for word."""
+    from zerochain_tpu_torch.ec import cuda_pairing as cp
+
+    pset, ins, want = pairing_rows[kind]
+    consts = cp._consts("cpu")
+    B = ins.shape[2]
+    text = (f"ppr {len(pset.ops)} {len(pset.stage_end)} {len(pset.prog_stage) - 1} "
+            f"{len(pset.seq)} {pset.n_slots} {consts.shape[1]} {pset.n_in} {pset.n_out} "
+            f"{B} {lanes}\n"
+            + " ".join(map(str, pset.ops.reshape(-1).tolist())) + "\n"
+            + " ".join(map(str, pset.stage_end.tolist())) + "\n"
+            + " ".join(map(str, pset.prog_stage.tolist())) + "\n"
+            + " ".join(map(str, pset.seq.reshape(-1).tolist())) + "\n"
+            + _hex(consts) + "\n" + _hex(ins) + "\n")
+    (got,) = _run(host_bin, text)
+    assert torch.equal(_words_of(got, want.shape), want)

@@ -3,8 +3,9 @@
 // split_tail_kernel.cu and the bucket sums of hs_kernel.cu, the one-lane chain programs of
 // group_program.cuh, the Fermat inverse of ff_kernels.cu, the per-lane
 // Jubjub chains of jubjub_kernels.cu, the NTT passes and pointwise step of
-// ntt_kernel.cu and the witness gadgets' per-thread step and program
-// interpreter of witness_kernel.cu compile as plain C++,
+// ntt_kernel.cu, the witness gadgets' per-thread step and program
+// interpreter of witness_kernel.cu and the pairing's stage body of
+// pairing_kernel.cu compile as plain C++,
 // so their arithmetic can be held against the plain PyTorch versions where
 // there is no CUDA toolkit.  Driven by tests/test_torch_csrc_host.py.
 //
@@ -36,6 +37,11 @@
 //   wgp n_ops n_stages n_slots n_aux n_ins B  ops stage_end aux ins
 //                                    -> W2's program for every proof, one lane
 //                                       a proof, then aux, one line
+//   ppr n_ops n_stages n_progs n_seq n_slots n_consts n_in n_out B L
+//       ops stage_end prog_stage seq consts ins
+//                                    -> the pairing set's sequence for every
+//                                       pairing, each stage stepped lane by
+//                                       lane (L lanes), then outs, one line
 // Threads are stepped through in order, a barrier being the end of a loop
 // over the threads.  k3: T threads a row (T = 0: as many as the kernel gives
 // the row for its non-zero count, R non-zero digits a thread at least),
@@ -54,6 +60,7 @@
 #include "hs_kernel.cu"
 #include "jubjub_kernels.cu"
 #include "ntt_kernel.cu"
+#include "pairing_kernel.cu"
 #include "split_tail_kernel.cu"
 #include "totals_kernel.cu"
 #include "witness_kernel.cu"
@@ -404,6 +411,22 @@ static void wit_program_host(int n_ops, int n_stages, int n_slots, long long n_a
   print_words(aux);
 }
 
+static void pairing_set_host(int n_ops, int n_stages, int n_progs, int n_seq, int n_slots,
+                             int n_consts, long long n_in, long long n_out, long long B, int L) {
+  std::vector<int32_t> ops(4 * n_ops), ends(n_stages), pstage(n_progs + 1), seq(2 * n_seq);
+  for (auto* v : {&ops, &ends, &pstage, &seq})
+    for (auto& x : *v) if (scanf("%d", &x) != 1) x = 0;
+  const std::vector<uint32_t> consts = read_words(12 * n_consts), ins = read_words(12 * n_in * B);
+  std::vector<uint32_t> outs(12 * n_out * B), slots(12 * PP_MAX_SLOTS);
+  const PpArgs g{(const PpOp*)ops.data(), ends.data(), pstage.data(), seq.data(), n_seq,
+                 n_slots, n_consts, consts.data(), ins.data(), outs.data(), n_in, n_out, B};
+  for (long long b = 0; b < B; b++)
+    for (int e = 0; e < n_seq; e++)
+      for (int st = pstage[seq[2 * e]]; st < pstage[seq[2 * e] + 1]; st++)
+        for (int lane = 0; lane < L; lane++) pp_stage(g, st, seq[2 * e + 1], slots.data(), b, lane, L);
+  print_words(outs);
+}
+
 int main() {
   char op[16];
   while (scanf("%15s", op) == 1) {
@@ -437,6 +460,12 @@ int main() {
       if (scanf("%d %d %d %lld %lld %lld", &n_ops, &n_stages, &n_slots, &n_aux, &n_ins, &B) != 6)
         return 2;
       wit_program_host(n_ops, n_stages, n_slots, n_aux, n_ins, B);
+    } else if (!strcmp(op, "ppr")) {
+      int n_ops, n_stages, n_progs, n_seq, n_slots, n_consts, L; long long n_in, n_out, B;
+      if (scanf("%d %d %d %d %d %d %lld %lld %lld %d", &n_ops, &n_stages, &n_progs, &n_seq,
+                &n_slots, &n_consts, &n_in, &n_out, &B, &L) != 10 || n_slots > PP_MAX_SLOTS)
+        return 2;
+      pairing_set_host(n_ops, n_stages, n_progs, n_seq, n_slots, n_consts, n_in, n_out, B, L);
     } else if (!strcmp(op, "ntp")) {
       int bc; long long count;
       if (scanf("%lld %d", &count, &bc) != 2) return 2;

@@ -24,7 +24,7 @@ BUILD_DIR = _HERE / "_build"
 
 SOURCES = ("ff_kernels", "ec_kernels", "totals_kernel", "hs_kernel",
            "column_scan_kernel", "split_tail_kernel", "jubjub_kernels",
-           "ntt_kernel", "witness_kernel")
+           "ntt_kernel", "witness_kernel", "pairing_kernel")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,38 +1,48 @@
-"""BLS12-381 optimal-ate pairing on batched tower tensors (ec/tower.py).
+"""BLS12-381 optimal-ate pairing on batched tower tensors.
 
 The JAX package (``zerochain_tpu/ec/pairing.py``) runs the Miller loop and
 the final exponentiation as ``lax.scan``s over the 64-bit BLS_X schedule and
 computes both sides of every scheduled branch, selecting one.  Here the
-schedule is a host constant, so the host branches on its bits: an addition
-step or line runs only where the bit is set (5 of the 62 steps), and a power
-by x squares 63 times and multiplies 5 times.  The values are the same; the
-step formulas are the reference's (core/pairing/src/bls12_381/mod.rs:40-359,
-eprint 2010/354 algorithms 26/27), as in the host mirror (mirror/pairing.py),
-which the tests pin to RELIC's golden vector.
+schedule is a host constant: an addition step or line runs only where the
+bit is set (5 of the 62 steps), and a power by x squares 63 times and
+multiplies 5 times.  The values are the same; the step formulas are the
+reference's (core/pairing/src/bls12_381/mod.rs:40-359, eprint 2010/354
+algorithms 26/27), as in the host mirror (mirror/pairing.py), which the
+tests pin to RELIC's golden vector.
 
 Points: G1 coordinates are Fq tensors (12, *batch), G2 coordinates Fq2
 tensors (12, 2, *batch), affine, not at infinity; trailing batch axes ride
-through.  Every field operation is a K1 kernel launch on CUDA tensors (its
-plain version on CPU tensors); ``pairing_host`` resolves ``device=None`` to
-the card and raises without one.
+through.  ``g2_prepare``, ``miller_loop``, ``final_exponentiation`` and
+``pairing`` run on the two program sets of ``ec/cuda_pairing.py``: on CUDA
+tensors one kernel launch each (``pairing``: two), a warp a pairing, on CPU
+tensors their plain versions; around them only the stacking of the inputs
+into rows and the views of the outputs.  ``pairing_host`` resolves
+``device=None`` to the card and raises without one.
+
+The ``*_tower`` functions are the same maps as a chain of tower operations
+(ec/tower.py), each field operation a K1 kernel launch on CUDA tensors (its
+plain version on CPU tensors): the independent reference of the tests and
+the "K1 loop" that chip_smoke.py times beside the kernels.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from .. import _device
 from ..ff import limbs as L
 from ..mirror.field import BLS_X
+from . import cuda_pairing as CP
 from . import tower as T
 from .fields import FqOps as F
 
 FQ = L.FQ
 
-# MSB-first bits of BLS_X >> 1 with the leading one skipped: the shared
-# iteration schedule of g2_prepare and the Miller loop (62 steps, 5 set).
-_XBITS = [(BLS_X >> 1 >> i) & 1 for i in range(63, -1, -1)]
-_SCHED = tuple(bool(b) for b in _XBITS[_XBITS.index(1) + 1:])
+# the shared iteration schedule of g2_prepare and the Miller loop (62 steps,
+# 5 set): MSB-first bits of BLS_X >> 1 with the leading one skipped
+_SCHED = CP.SCHED
 
 
 def _st(*xs, dim=2):
@@ -95,11 +105,8 @@ def _addition_step(r, qx, qy):
     return _st(nrx, nry, nrz), _st(dd[:, :, 2], dd[:, :, 3], c2)
 
 
-def g2_prepare(qx, qy):
-    """Line coefficients for affine G2 bases (Fq2 tensors (12, 2, *batch)).
-    -> (dbl, add, final): dbl a list of the 62 doubling steps' coefficients
-    (each (12, 2, 3, *batch)), add the 62 steps' addition coefficients,
-    None where the schedule's bit is clear, final the last doubling's."""
+def g2_prepare_tower(qx, qy):
+    """g2_prepare as a chain of tower operations."""
     qx, qy = T.bcast(qx, qy)
     one = torch.zeros_like(qx)
     one[:, 0] = FQ.const(FQ.r_mod_p, one[:, 0])
@@ -122,10 +129,8 @@ def _ell(f, coeffs, px, py):
     return T.fq12_mul_by_014(f, coeffs[:, :, 2], m[:, :, 1], m[:, :, 0])
 
 
-def miller_loop(pairs):
-    """pairs: [((px, py), (dbl, add, final)), ...], G1 coordinates and
-    prepared G2 coefficients of one batch shape.  -> Fq12 (conjugated:
-    BLS_X < 0)."""
+def miller_loop_tower(pairs):
+    """miller_loop as a chain of tower operations."""
     px0 = pairs[0][0][0]
     f = T.fq12_one(px0.shape[1:], px0.device)
     for k, bit in enumerate(_SCHED):
@@ -153,9 +158,8 @@ def _exp_by_x(f):
     return T.fq12_conj(_pow(f, BLS_X))  # x is negative
 
 
-def final_exponentiation(r):
-    """mod.rs:104-160.  Assumes r != 0 (true for Miller outputs of valid
-    points)."""
+def final_exponentiation_tower(r):
+    """final_exponentiation as a chain of tower operations (mod.rs:104-160)."""
     f1 = T.fq12_conj(r)
     f2 = T.fq12_inv(r)
     rr = T.fq12_mul(f1, f2)
@@ -185,9 +189,72 @@ def final_exponentiation(r):
     return T.fq12_mul(y1, y2)
 
 
+def pairing_tower(px, py, qx, qy):
+    """pairing as a chain of tower operations."""
+    return final_exponentiation_tower(miller_loop_tower([((px, py),
+                                                          g2_prepare_tower(qx, qy))]))
+
+
+def _rows(cols, lead, batch):
+    """Tensors (*lead dims, *batch') broadcast to batch and stacked ->
+    (12, rows, B), the rows of cuda_pairing's sets."""
+    out = []
+    for c in cols:
+        b = c.shape[lead:]
+        c = c.reshape(*c.shape[:lead], *(1,) * (len(batch) - len(b)), *b)
+        out.append(c.expand(*c.shape[:lead], *batch))
+    return torch.stack(out, 1).reshape(FQ.n, -1, math.prod(batch))
+
+
+def g2_prepare(qx, qy):
+    """Line coefficients for affine G2 bases (Fq2 tensors (12, 2, *batch)).
+    -> (dbl, add, final): dbl a list of the 62 doubling steps' coefficients
+    (each (12, 2, 3, *batch)), add the 62 steps' addition coefficients,
+    None where the schedule's bit is clear, final the last doubling's: views
+    of one launch's rows (cuda_pairing.miller_set("prepare"))."""
+    batch = torch.broadcast_shapes(qx.shape[2:], qy.shape[2:])
+    ins = _rows([qx[:, 0], qx[:, 1], qy[:, 0], qy[:, 1]], 1, batch)
+    c = CP.execute(CP.miller_set("prepare"), ins).reshape(
+        FQ.n, CP.N_STEPS, 2, 2, 3, *batch)
+    return ([c[:, k, 0] for k in range(len(_SCHED))],
+            [c[:, k, 1] if bit else None for k, bit in enumerate(_SCHED)],
+            c[:, len(_SCHED), 0])
+
+
+def miller_loop(pairs):
+    """pairs: [((px, py), (dbl, add, final)), ...], G1 coordinates and
+    prepared G2 coefficients of one batch shape.  -> Fq12 (conjugated:
+    BLS_X < 0), from one launch of cuda_pairing.miller_set("loop",
+    len(pairs)): the pairs share f."""
+    batch = torch.broadcast_shapes(*(x.shape[1:] for (p, _) in pairs for x in p),
+                                   *(c[-1].shape[3:] for _, c in pairs))
+    cols = [x for (p, _) in pairs for x in p]
+    for _, (dbl, add, final) in pairs:
+        zero = torch.zeros_like(final)
+        for k in range(len(_SCHED)):
+            cols += [dbl[k], zero if add[k] is None else add[k]]
+        cols += [final, zero]
+    n_p = 2 * len(pairs)
+    ins = torch.cat([_rows(cols[:n_p], 1, batch), _rows(cols[n_p:], 3, batch)], 1)
+    f = CP.execute(CP.miller_set("loop", len(pairs)), ins)
+    return f.reshape(FQ.n, 2, 3, 2, *batch)
+
+
+def final_exponentiation(r):
+    """mod.rs:104-160 in one launch of cuda_pairing.final_exp_set().
+    Assumes r != 0 (true for Miller outputs of valid points)."""
+    out = CP.execute(CP.final_exp_set(), r.reshape(FQ.n, 12, -1).contiguous())
+    return out.reshape(r.shape)
+
+
 def pairing(px, py, qx, qy):
-    """e(P, Q) on device tensors (trailing batch axes ride through)."""
-    return final_exponentiation(miller_loop([((px, py), g2_prepare(qx, qy))]))
+    """e(P, Q) on device tensors (trailing batch axes ride through): one
+    launch of cuda_pairing.miller_set("pairing") (the G2 preparation and the
+    Miller loop) and one of final_exp_set()."""
+    batch = torch.broadcast_shapes(px.shape[1:], py.shape[1:], qx.shape[2:], qy.shape[2:])
+    ins = _rows([px, py, qx[:, 0], qx[:, 1], qy[:, 0], qy[:, 1]], 1, batch)
+    f = CP.execute(CP.miller_set("pairing"), ins)
+    return CP.execute(CP.final_exp_set(), f).reshape(FQ.n, 2, 3, 2, *batch)
 
 
 def g1_tensors(points, device):

@@ -12,8 +12,9 @@ process.  Prints the card's name and power limit, then JSON lines:
 - ``pairing``: ``ec.pairing.pairing_host_batch`` on chip_smoke's
   PAIRING_BATCH pairs of generator multiples, at batch 1 and at the full
   batch: one warm call, then ``--reps`` timed ones (host clock around a
-  synchronize), each with its K1 launches by op, the results checked equal
-  across the calls and, once, against the mirror;
+  synchronize), each with its K1 launches by op and its pairing-kernel
+  launches (``ec.cuda_pairing``, where the checkout has it), the results
+  checked equal across the calls and, once, against the mirror;
 - ``reddsa`` (unless --no-reddsa): ``protocol.redjubjub_device.batch_verify_device``
   on chip_smoke's block of REDDSA_BLOCK signatures, one warm call, then
   ``--reps`` timed ones, seconds split host / device.
@@ -45,6 +46,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("verify_times: no CUDA device", file=sys.stderr)
         return 2
+    import importlib
+
     import chip_smoke
     from zerochain_tpu_torch import _build
     from zerochain_tpu_torch.ec import pairing as DP
@@ -60,6 +63,10 @@ def main() -> int:
     def emit(**kw):
         print(json.dumps({"tag": args.tag, **kw}), flush=True)
 
+    try:  # a checkout from before the pairing kernels has no such module
+        pp = importlib.import_module("zerochain_tpu_torch.ec.cuda_pairing")
+    except ModuleNotFoundError:
+        pp = None
     _build.build_all()
     n = chip_smoke.PAIRING_BATCH
     ps = [C.g1_mul(C.G1_GEN, 3 + 7 * i) for i in range(n)]
@@ -68,6 +75,8 @@ def main() -> int:
         first = DP.pairing_host_batch(ps[:b], qs[:b])
         for _ in range(args.reps):
             cuda_ff.reset_launches()
+            if pp:
+                pp.reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = DP.pairing_host_batch(ps[:b], qs[:b])
@@ -75,7 +84,8 @@ def main() -> int:
             secs = time.perf_counter() - t0
             by_op = {k: v for k, v in cuda_ff.launches.items() if v}
             emit(kernel="pairing", batch=b, seconds=secs, pairings_per_second=b / secs,
-                 k1_launches=sum(by_op.values()), k1_by_op=by_op, same=out == first)
+                 k1_launches=sum(by_op.values()), k1_by_op=by_op,
+                 pairing_launches=dict(pp.launches) if pp else None, same=out == first)
         emit(kernel="pairing", batch=b,
              equal_to_mirror=first == [P.pairing(p, q) for p, q in zip(ps[:b], qs[:b])])
 
